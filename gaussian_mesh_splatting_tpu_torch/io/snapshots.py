@@ -1,0 +1,80 @@
+"""Model snapshots for `gs_mesh`: reference-compatible PLY + npz sidecar.
+
+Port of `gaussian_mesh_splatting_tpu/io/snapshots.py`, in the same format, so
+a snapshot written by either package loads in the other. The PLY carries the
+derived Gaussian attributes (renderable by any 3DGS viewer); the sidecar
+carries the mesh parameterization (vertices, alpha, scale).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.gaussian_bag import shs_to_features
+from .checkpoint import load_sidecar, save_sidecar, unflatten_sidecar
+from .ply import load_gaussians_ply, save_gaussians_ply
+
+SIDECAR_NAME = "model_params.npz"
+PORTED_GS_TYPES = ("gs_mesh",)
+
+
+def _check_ported(gs_type: str) -> None:
+    if gs_type not in PORTED_GS_TYPES:
+        raise NotImplementedError(f"snapshots of gs_type {gs_type!r} are not ported yet")
+
+
+def save_snapshot(gs_type: str, model, state: dict, dirpath: str) -> str:
+    """Write point_cloud.ply and the sidecar. Returns the ply path."""
+    _check_ported(gs_type)
+    os.makedirs(dirpath, exist_ok=True)
+    ply_path = os.path.join(dirpath, "point_cloud.ply")
+    p = state["params"]
+
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    with torch.no_grad():
+        bag = model.to_bag(state)
+        f_dc, f_rest = shs_to_features(bag.shs)
+        save_gaussians_ply(
+            ply_path,
+            np_(bag.xyz),
+            np_(f_dc),
+            np_(f_rest),
+            np_(p["opacity"]),
+            np.log(np.maximum(np_(bag.scaling), 1e-30)),
+            np_(bag.rotation),
+        )
+    sidecar = {k: v for k, v in p.items() if k not in ("f_dc", "f_rest", "opacity")}
+    save_sidecar(os.path.join(dirpath, SIDECAR_NAME), sidecar)
+    return ply_path
+
+
+def load_snapshot(
+    gs_type: str,
+    dirpath: str,
+    sh_degree: int = 3,
+    consts: dict | None = None,
+    *,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Rebuild a model state from a snapshot directory, on `device`
+    (CUDA unless the caller asks for another). `consts` (the mesh faces)
+    do not travel in the snapshot; the caller supplies them."""
+    _check_ported(gs_type)
+    dev = resolve_device(device)
+    cols = load_gaussians_ply(os.path.join(dirpath, "point_cloud.ply"), max_sh_degree=sh_degree)
+    sidecar_path = os.path.join(dirpath, SIDECAR_NAME)
+    if not os.path.exists(sidecar_path):
+        raise FileNotFoundError(f"{gs_type} snapshot needs its sidecar {sidecar_path}")
+    params = {k: cols[k] for k in ("f_dc", "f_rest", "opacity")}
+    params.update(unflatten_sidecar(load_sidecar(sidecar_path)))
+    n = cols["xyz"].shape[0]
+    return {
+        "params": {k: torch.as_tensor(v, device=dev) for k, v in params.items()},
+        "consts": dict(consts or {}),
+        "alive": torch.ones((n,), dtype=torch.bool, device=dev),
+    }

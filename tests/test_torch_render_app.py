@@ -1,0 +1,159 @@
+"""The port's render app against the JAX package's, end to end on the CPU:
+a tiny Blender_Mesh dataset and a `gs_mesh` snapshot written by the JAX
+package, rendered by both apps; the PNGs must agree within 1/255. Also: the
+CUDA backend refuses CPU tensors, the entry points refuse to run without a
+card unless asked for the CPU, and the port imports neither JAX nor the JAX
+package."""
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from gaussian_mesh_splatting_tpu.apps import render as j_render_app
+from gaussian_mesh_splatting_tpu.io.checkpoint import snapshot_dir
+from gaussian_mesh_splatting_tpu.io.config_io import save_cfg
+from gaussian_mesh_splatting_tpu.io.obj import save_obj
+from gaussian_mesh_splatting_tpu.io.snapshots import save_snapshot as j_save_snapshot
+from gaussian_mesh_splatting_tpu.models import mesh as jmesh
+from gaussian_mesh_splatting_tpu.scene import Scene as JScene
+from gaussian_mesh_splatting_tpu_torch.apps import render as t_render_app
+from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+from gaussian_mesh_splatting_tpu_torch.io.snapshots import load_snapshot
+from gaussian_mesh_splatting_tpu_torch.models import mesh as tmesh
+from gaussian_mesh_splatting_tpu_torch.renderer import render
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ITER = 7
+
+
+def _write_dataset(root, n_cams=2, size=40):
+    """Blender_Mesh dataset: an octahedron mesh and a ring of cameras."""
+    rng = np.random.default_rng(0)
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n_cams):
+            angle = 2 * np.pi * (i + (0.5 if split == "test" else 0.0)) / n_cams
+            c = np.array([3 * np.sin(angle), 0.4, 3 * np.cos(angle)])
+            fwd = -c / np.linalg.norm(c)
+            right = np.cross([0.0, 1.0, 0.0], fwd)
+            right /= np.linalg.norm(right)
+            c2w = np.eye(4)
+            c2w[:3, :3] = np.stack([right, np.cross(fwd, right), -fwd], axis=1)
+            c2w[:3, 3] = c
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
+            img = (rng.random((size, size, 4)) * 255).astype(np.uint8)
+            Image.fromarray(img, "RGBA").save(os.path.join(root, split, f"r_{i}.png"))
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    verts = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+                     np.float32) * 0.8
+    faces = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                      [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int32)
+    save_obj(os.path.join(root, "mesh.obj"), verts, faces)
+
+
+@pytest.fixture(scope="module")
+def jax_model(tmp_path_factory):
+    """Dataset + a JAX-written gs_mesh model directory (randomized state)."""
+    root = str(tmp_path_factory.mktemp("scene"))
+    model = str(tmp_path_factory.mktemp("model"))
+    _write_dataset(root)
+    scene = JScene(root, "gs_mesh", eval=True, num_splats=4, shuffle=False)
+    state = scene.init_model_state(jmesh, sh_degree=1)
+    rng = np.random.default_rng(1)
+    p = dict(state["params"])
+    p["f_dc"] = jnp.asarray(rng.random(p["f_dc"].shape, np.float32) * 2 - 0.5)
+    p["f_rest"] = jnp.asarray((rng.standard_normal(p["f_rest"].shape) * 0.1).astype(np.float32))
+    p["opacity"] = jnp.asarray(rng.standard_normal(p["opacity"].shape).astype(np.float32) + 1.5)
+    p["scale"] = jnp.asarray(rng.uniform(0.8, 1.5, p["scale"].shape).astype(np.float32))
+    state = {"params": p, "consts": state["consts"], "alive": state["alive"]}
+    j_save_snapshot("gs_mesh", jmesh, state, snapshot_dir(model, ITER))
+    save_cfg(model, {"source_path": root, "gs_type": "gs_mesh", "sh_degree": 1,
+                     "num_splats": 4, "white_background": True, "eval": True})
+    return model
+
+
+def test_render_app_matches_jax(jax_model, tmp_path):
+    port_model = str(tmp_path / "port_model")
+    shutil.copytree(jax_model, port_model)
+    j_render_app.main(["-m", jax_model])
+    t_render_app.main(["-m", port_model, "--device", "cpu"])
+    n_checked = 0
+    for split in ("train", "test"):
+        for i in range(2):
+            rel = os.path.join(split, f"ours_{ITER}", "renders_gs_mesh", f"{i:05d}.png")
+            a = np.asarray(Image.open(os.path.join(jax_model, rel)), np.int32)
+            b = np.asarray(Image.open(os.path.join(port_model, rel)), np.int32)
+            assert a.shape == b.shape == (40, 40, 3)
+            assert np.abs(a - b).max() <= 1, rel
+            assert a.std() > 1.0  # the mesh is in view
+            n_checked += 1
+    assert n_checked == 4
+
+
+def test_snapshot_roundtrip_from_jax(jax_model):
+    state = load_snapshot("gs_mesh", snapshot_dir(jax_model, ITER), sh_degree=1,
+                          consts={"faces": torch.zeros((8, 3), dtype=torch.int64)},
+                          device="cpu")
+    p = state["params"]
+    assert set(p) == {"vertices", "alpha", "scale", "f_dc", "f_rest", "opacity"}
+    assert p["alpha"].shape == (8, 4, 3) and p["f_rest"].shape == (32, 3, 3)
+    assert state["alive"].shape == (32,)
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    rng = np.random.default_rng(0)
+    state = tmesh.init_from_mesh(
+        torch.tensor(rng.standard_normal((3, 3)), dtype=torch.float32),
+        torch.tensor([[0, 1, 2]]), torch.tensor(rng.random((1, 2, 3))),
+        torch.tensor(rng.random((2, 3))), sh_degree=0)
+    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.8, 32, 32, device="cpu")
+    bag = tmesh.to_bag(state)
+    with pytest.raises(ValueError, match="CUDA"):
+        render(bag, cam, torch.zeros(3), sh_degree=0, backend="cuda")
+    out = render(bag, cam, torch.zeros(3), sh_degree=0, backend="auto")
+    assert out.image.shape == (32, 32, 3)
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(jax_model, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_render_app.main(["-m", jax_model])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_camera(np.eye(3), np.zeros(3), 0.8, 0.8, 8, 8)
+
+
+def test_unported_gs_type_raises(jax_model, tmp_path):
+    other = str(tmp_path / "gs_model")
+    shutil.copytree(jax_model, other)
+    with pytest.raises(NotImplementedError, match="'gs_flat' is not ported yet"):
+        t_render_app.main(["-m", other, "--gs_type", "gs_flat", "--device", "cpu"])
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gaussian_mesh_splatting_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert len(names) >= 25, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.startswith('gaussian_mesh_splatting_tpu.')\n"
+        "       or m == 'gaussian_mesh_splatting_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
