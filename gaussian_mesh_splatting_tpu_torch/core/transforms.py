@@ -71,7 +71,8 @@ def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )  # (B, 4 candidates, 4)
-    quat_candidates = quat_by_rijk / (2.0 * torch.clamp_min(q_abs[..., None], 0.1))
+    floor = q_abs.new_tensor(0.1)
+    quat_candidates = quat_by_rijk / (2.0 * torch.maximum(q_abs[..., None], floor))
     best = torch.argmax(q_abs, dim=-1)
     out = torch.take_along_dim(quat_candidates, best[:, None, None], dim=-2)[:, 0, :]
     return standardize_quaternion(out).reshape(*batch_shape, 4)

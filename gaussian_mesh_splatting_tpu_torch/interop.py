@@ -1,6 +1,7 @@
-"""Carry model states and cameras from the JAX package into the port.
+"""Carry model states, training states and cameras from the JAX package
+into the port.
 
-Both functions take plain numpy arrays (what `np.asarray` gives for a JAX
+The functions take plain numpy arrays (what `np.asarray` gives for a JAX
 array), so this module, like the rest of the port, never imports JAX.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from .core.camera import Camera
 from .device import resolve_device
 from .models import get_model
+from .train.state import DensifyStats, TrainState, make_train_state
 
 _CAMERA_TENSOR_FIELDS = (
     "world_view", "full_proj", "cam_center", "tanfovx", "tanfovy", "znear", "zfar",
@@ -51,3 +53,36 @@ def camera_from_numpy(
         for k in _CAMERA_TENSOR_FIELDS
     }
     return Camera(**tensors, width=int(fields["width"]), height=int(fields["height"]))
+
+
+def train_state_from_numpy(
+    gs_type: str,
+    tstate: Mapping,
+    config,
+    spatial_lr_scale: float = 1.0,
+    *,
+    device: str | torch.device | None = None,
+) -> TrainState:
+    """A JAX-package TrainState, given as a mapping of numpy arrays, -> the
+    port's TrainState on `device`, Adam moments included.
+
+    `tstate` holds "params", "consts", "alive" (as for `state_from_numpy`),
+    "step" and "active_sh_degree" (ints), "stats" ({"grad_accum", "denom",
+    "max_radii"}) and "adam": {param key: {"count": int, "mu": array,
+    "nu": array}}, the optax Adam state of each param group."""
+    state = make_train_state(state_from_numpy(gs_type, tstate, device=device), config,
+                             spatial_lr_scale)
+    dev = state.alive.device
+    state.step = int(tstate["step"])
+    state.active_sh_degree = int(tstate["active_sh_degree"])
+    state.stats = DensifyStats(**{k: torch.tensor(np.asarray(tstate["stats"][k]), device=dev)
+                                  for k in ("grad_accum", "denom", "max_radii")})
+    for group in state.optimizer.param_groups:
+        adam = tstate["adam"][group["name"]]
+        (p,) = group["params"]
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(adam["count"]), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(adam["mu"]), device=dev),
+            "exp_avg_sq": torch.tensor(np.asarray(adam["nu"]), device=dev),
+        }
+    return state

@@ -62,6 +62,7 @@ def tile_rect(
     return xmin, xmax, ymin, ymax
 
 
+@torch.no_grad()
 def bin_gaussians(
     proj: ProjectedGaussians,
     *,
@@ -71,7 +72,8 @@ def bin_gaussians(
     n_tiles_x: int,
     pair_capacity: int | None = None,
 ) -> Binning:
-    """Depth-ordered per-tile pair lists (see the module docstring)."""
+    """Depth-ordered per-tile pair lists (see the module docstring). Integer
+    work only: it runs outside autograd, and its outputs carry no gradient."""
     dev = proj.mean2d.device
     n = proj.mean2d.shape[0]
     n_tiles = n_tiles_y * n_tiles_x

@@ -150,7 +150,10 @@ def sh_colors(
     coeff = (sh_deg + 1) ** 2
     sh_t = shs[..., :coeff].permute(2, 1, 0)  # (K, C, N)
     rgb = _eval_sh_cols(sh_deg, sh_t, dx * inv_n, dy * inv_n, dz * inv_n)
-    return torch.clamp_min(torch.stack(rgb, dim=-1) + 0.5, 0.0)
+    # torch.maximum, not clamp_min: at a tie it splits the gradient in half,
+    # as jnp.maximum does (clamp_min passes all of it)
+    rgb = torch.stack(rgb, dim=-1) + 0.5
+    return torch.maximum(rgb, rgb.new_zeros(()))
 
 
 def preprocess(
@@ -165,10 +168,15 @@ def preprocess(
     sh_degree: int = 0,
     scale_modifier=1.0,
     antialiasing: bool = False,
+    mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     radius_mode: str = "cuda",
 ) -> ProjectedGaussians:
     """Full screen-space preprocessing for a batch of Gaussians.
+
+    `mean2d_offset` is an all-zeros (N, 2) tensor the caller threads in to
+    obtain screen-space positional gradients: gradients w.r.t. it equal
+    gradients w.r.t. the projected pixel positions.
 
     radius_mode selects the binning rectangle (the reported `radius` is
     always the CUDA ceil(3 sigma_max) visibility radius):
@@ -191,6 +199,9 @@ def preprocess(
     inv_w = 1.0 / (apply_row(FP, 3) + 1e-7)
     px = ndc_to_pixel(apply_row(FP, 0) * inv_w, cam.width)
     py = ndc_to_pixel(apply_row(FP, 1) * inv_w, cam.height)
+    if mean2d_offset is not None:
+        px = px + mean2d_offset[:, 0]
+        py = py + mean2d_offset[:, 1]
 
     # 3D covariance (6 unique entries)
     qr, qx, qy, qz = rotations.unbind(-1)
@@ -228,7 +239,7 @@ def preprocess(
 
     opac = opacities.reshape(-1)
     if antialiasing:
-        opac = opac * torch.sqrt(torch.clamp_min(det_ratio, 0.0))
+        opac = opac * torch.sqrt(torch.maximum(det_ratio, det_ratio.new_zeros(())))
 
     # conservative screen radius from the major eigenvalue (CUDA heuristic)
     mid = 0.5 * (a + c)

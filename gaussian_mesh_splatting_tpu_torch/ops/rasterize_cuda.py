@@ -1,17 +1,21 @@
-"""Tile rasterizer with a hand-written CUDA composite: the port's fast path
+"""Tile rasterizer with hand-written CUDA composites: the port's fast path
 (counterpart of `gaussian_mesh_splatting_tpu/ops/rasterize_pallas.py`).
 
   preprocess (torch)           project / cull / conic / SH, ops/projection.py
   bin_gaussians (torch)        depth-ordered per-tile pair lists, ops/binning.py
-  composite_fwd (CUDA kernel)  per-tile front-to-back composite,
-                               csrc/composite_fwd.cu
+  composite (CUDA kernels)     forward: per-tile front-to-back composite,
+                               csrc/composite_fwd.cu; backward: per-tile
+                               back-to-front re-walk into per-Gaussian
+                               gradients, csrc/composite_bwd.cu
   background + outputs (torch) image = rgb + T * bg
 
-`composite_fwd` launches the kernel for CUDA tensors and runs the plain
-PyTorch version `composite_fwd_plain` for CPU tensors. It never falls back
-from one to the other: a CUDA tensor gets the kernel or an exception.
-Tiles are 16x16 pixels; in "tight" radius mode the tile size does not change
-the image.
+One `torch.autograd.Function` (`_Composite`) joins the two: its forward is
+the forward kernel and its backward the backward kernel. For CPU tensors the
+same Function runs the plain PyTorch versions `composite_fwd_plain` and
+`composite_bwd_plain`, so the CPU tests go through the same autograd wiring
+as the card. It never falls back from one to the other: a CUDA tensor gets
+the kernel or an exception. Tiles are 16x16 pixels; in "tight" radius mode
+the tile size does not change the image.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.camera import Camera
 from . import cuda_build
@@ -26,12 +31,22 @@ from .binning import Binning, bin_gaussians
 from .projection import preprocess
 from .rasterize_reference import ALPHA_MAX, ALPHA_MIN, T_EPS, RenderOutput
 
-TILE = 16  # the kernel's tile edge (one block of TILE*TILE threads per tile)
+TILE = 16  # the kernels' tile edge (one block of TILE*TILE threads per tile)
 N_PLANES = 5  # r, g, b, T_final, depth
+GRAD_COLS = 10  # per-Gaussian gradient columns: mx, my, a, b, c, op, r, g, b, z
 
 
 def _tile_grid(height: int, width: int) -> tuple[int, int]:
     return -(-height // TILE), -(-width // TILE)
+
+
+def _tile_pixels(n_tiles_x: int, n_tiles: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel coordinates (n_tiles, TILE*TILE) float32 of each tile's threads."""
+    lin = torch.arange(TILE * TILE, device=dev)
+    tiles = torch.arange(n_tiles, device=dev)
+    px = ((tiles % n_tiles_x)[:, None] * TILE + (lin % TILE)[None, :]).to(torch.float32)
+    py = ((tiles // n_tiles_x)[:, None] * TILE + (lin // TILE)[None, :]).to(torch.float32)
+    return px, py
 
 
 def composite_fwd_plain(
@@ -46,20 +61,17 @@ def composite_fwd_plain(
     height: int,
     width: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the composite kernel, with the same inputs
-    and outputs: vectorized over tiles and pixels, a Python loop over the
-    k-th pair of every tile. Every product and sum is one torch operation,
-    in the kernel's order.
+    """Plain PyTorch version of the forward composite kernel, with the same
+    inputs and outputs: vectorized over tiles and pixels, a Python loop over
+    the k-th pair of every tile. Every product and sum is one torch
+    operation, in the kernel's order.
 
     Returns (planes (5, H, W) float32 = r, g, b, T_final, depth;
     nc (H, W) int32 = 1-based rank of the last included pair in the tile)."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
-    lin = torch.arange(TILE * TILE, device=dev)
-    tiles = torch.arange(n_tiles, device=dev)
-    px = ((tiles % n_tx)[:, None] * TILE + (lin % TILE)[None, :]).to(torch.float32)
-    py = ((tiles // n_tx)[:, None] * TILE + (lin // TILE)[None, :]).to(torch.float32)
+    px, py = _tile_pixels(n_tx, n_tiles, dev)
 
     T = torch.ones((n_tiles, TILE * TILE), device=dev)
     rgb = torch.zeros((n_tiles, TILE * TILE, 3), device=dev)
@@ -100,14 +112,135 @@ def composite_fwd_plain(
     return to_image(planes).contiguous(), to_image(nc).contiguous()
 
 
+def composite_bwd_plain(
+    mean2d: torch.Tensor,
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    color: torch.Tensor,
+    depth: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_end: torch.Tensor,
+    height: int,
+    width: int,
+    t_final: torch.Tensor,
+    nc: torch.Tensor,
+    grad_planes: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward composite kernel, with the same
+    inputs and output: the forward's inputs, its saved T_final (H, W) and nc
+    (H, W), and the cotangents of its five planes (5, H, W). Vectorized over
+    tiles and pixels, a Python loop over the k-th pair of every tile from
+    the back; each per-pixel term is the kernel's expression, in its order.
+
+    Returns per-Gaussian gradients (N, 10) float32, columns mx, my, a, b, c,
+    op, r, g, b, z."""
+    dev = mean2d.device
+    n_ty, n_tx = _tile_grid(height, width)
+    n_tiles = n_ty * n_tx
+    px, py = _tile_pixels(n_tx, n_tiles, dev)
+
+    def to_tiles(x, fill):  # (..., H, W) -> (..., n_tiles, TILE*TILE)
+        lead = x.shape[:-2]
+        pad = (0, n_tx * TILE - width, 0, n_ty * TILE - height)
+        x = torch.nn.functional.pad(x, pad, value=fill)
+        x = x.reshape(*lead, n_ty, TILE, n_tx, TILE).transpose(-3, -2)
+        return x.reshape(*lead, n_tiles, TILE * TILE)
+
+    T = to_tiles(t_final, 1.0)
+    rank_stop = to_tiles(nc, 0)  # pixels outside the image include nothing
+    gr, gg, gb, gt, gd = to_tiles(grad_planes, 0.0)
+    S = T * gt
+
+    grads = torch.zeros((mean2d.shape[0], GRAD_COLS), dtype=torch.float32, device=dev)
+    start = tile_start.long()
+    n_pairs = pair_gaussian.shape[0]
+    if n_tiles == 0 or n_pairs == 0:
+        return grads
+    # each tile walks its pairs up to the largest nc among its pixels
+    top = torch.minimum(tile_end.long() - start, rank_stop.amax(dim=1).long())
+    for k in range(int(top.max().item()) - 1, -1, -1):
+        active = top > k
+        g = pair_gaussian[torch.clamp_max(start + k, n_pairs - 1)].long()
+        mx, my = mean2d[g, 0][:, None], mean2d[g, 1][:, None]
+        a, b, c = conic[g, 0][:, None], conic[g, 1][:, None], conic[g, 2][:, None]
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        G = torch.exp(power)
+        alpha_raw = opacity[g][:, None] * G
+        alpha = torch.clamp_max(alpha_raw, ALPHA_MAX)
+        inc = active[:, None] & (k < rank_stop) & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        one_m = 1.0 - alpha
+        t_before = torch.where(inc, T / one_m, T)
+        w = torch.where(inc, t_before * alpha, 0.0)
+        u = (color[g, 0][:, None] * gr + color[g, 1][:, None] * gg
+             + color[g, 2][:, None] * gb + depth[g][:, None] * gd)
+        dalpha = t_before * u - S / one_m
+        S = torch.where(inc, S + w * u, S)
+        T = t_before
+        unclamped = inc & (alpha_raw < ALPHA_MAX)
+        dpow = torch.where(unclamped, dalpha * alpha_raw, 0.0)
+        terms = torch.stack([
+            -(a * dx + b * dy) * dpow,
+            -(c * dy + b * dx) * dpow,
+            -0.5 * dx * dx * dpow,
+            -dx * dy * dpow,
+            -0.5 * dy * dy * dpow,
+            torch.where(unclamped, dalpha * G, 0.0),
+            w * gr, w * gg, w * gb, w * gd,
+        ], dim=-1).sum(dim=1)  # (n_tiles, 10): summed over the tile's pixels
+        grads.index_add_(0, g[active], terms[active])
+    return grads
+
+
 @functools.cache
-def _composite_lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("composite_fwd")
     lib.composite_fwd.restype = ctypes.c_int
     lib.composite_fwd.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     )
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("composite_bwd")
+    lib.composite_bwd.restype = ctypes.c_int
+    lib.composite_bwd.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    )
+    return lib
+
+
+def _check_kernel_inputs(expect: dict, dev: torch.device) -> None:
+    """Every tensor on `dev` (a CUDA device), of its dtype and shape, and
+    contiguous; raises ValueError otherwise."""
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be on {dev} (a CUDA device), got {t.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
+                     tile_start, tile_end, n_tiles) -> dict:
+    n = mean2d.shape[0]
+    if n * GRAD_COLS >= 2**31 or pair_gaussian.shape[0] >= 2**31:
+        raise ValueError("the kernels index with 32-bit integers")
+    return {
+        "mean2d": (mean2d, torch.float32, (n, 2)),
+        "conic": (conic, torch.float32, (n, 3)),
+        "opacity": (opacity, torch.float32, (n,)),
+        "color": (color, torch.float32, (n, 3)),
+        "depth": (depth, torch.float32, (n,)),
+        "pair_gaussian": (pair_gaussian, torch.int32, (pair_gaussian.shape[0],)),
+        "tile_start": (tile_start, torch.int32, (n_tiles,)),
+        "tile_end": (tile_end, torch.int32, (n_tiles,)),
+    }
 
 
 def composite_fwd_cuda(
@@ -122,36 +255,18 @@ def composite_fwd_cuda(
     height: int,
     width: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the composite kernel (csrc/composite_fwd.cu) on PyTorch's
-    current stream. Same contract as `composite_fwd_plain`. Counts its
-    launches in `composite_fwd_cuda.launches`."""
+    """Launch the forward composite kernel (csrc/composite_fwd.cu) on
+    PyTorch's current stream. Same contract as `composite_fwd_plain`. Counts
+    its launches in `composite_fwd_cuda.launches`."""
     dev = mean2d.device
-    n = mean2d.shape[0]
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
-    expect = {
-        "mean2d": (mean2d, torch.float32, (n, 2)),
-        "conic": (conic, torch.float32, (n, 3)),
-        "opacity": (opacity, torch.float32, (n,)),
-        "color": (color, torch.float32, (n, 3)),
-        "depth": (depth, torch.float32, (n,)),
-        "pair_gaussian": (pair_gaussian, torch.int32, (pair_gaussian.shape[0],)),
-        "tile_start": (tile_start, torch.int32, (n_tiles,)),
-        "tile_end": (tile_end, torch.int32, (n_tiles,)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be on {dev} (a CUDA device), got {t.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if n >= 2**31 or pair_gaussian.shape[0] >= 2**31:
-        raise ValueError("the kernel indexes with 32-bit integers")
+    _check_kernel_inputs(_gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
+                                          tile_start, tile_end, n_tiles), dev)
 
     planes = torch.empty((N_PLANES, height, width), dtype=torch.float32, device=dev)
     nc = torch.empty((height, width), dtype=torch.int32, device=dev)
-    lib = _composite_lib()
+    lib = _fwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.composite_fwd(
@@ -170,27 +285,100 @@ def composite_fwd_cuda(
 composite_fwd_cuda.launches = 0
 
 
-class _CompositeFwd(torch.autograd.Function):
-    """The kernel behind autograd. Its backward is the backward composite
-    kernel, which is not ported yet: it raises rather than differentiate
-    the plain version."""
+def _cotangent_planes(grad_planes: torch.Tensor | None, height: int, width: int,
+                      dev: torch.device) -> torch.Tensor:
+    """The cotangent of the five planes as one contiguous (5, H, W) float32
+    tensor: zeros where autograd passed none, a copy where it arrived strided
+    (e.g. from `planes[:3].permute(1, 2, 0)`)."""
+    if grad_planes is None:
+        return torch.zeros((N_PLANES, height, width), dtype=torch.float32, device=dev)
+    if grad_planes.dtype != torch.float32 or tuple(grad_planes.shape) != (N_PLANES, height, width):
+        raise ValueError(f"the planes' cotangent must be float32 {(N_PLANES, height, width)}, "
+                         f"got {grad_planes.dtype} {tuple(grad_planes.shape)}")
+    return grad_planes.contiguous()
+
+
+def composite_bwd_cuda(
+    mean2d: torch.Tensor,
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    color: torch.Tensor,
+    depth: torch.Tensor,
+    pair_gaussian: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_end: torch.Tensor,
+    height: int,
+    width: int,
+    t_final: torch.Tensor,
+    nc: torch.Tensor,
+    grad_planes: torch.Tensor | None,
+) -> torch.Tensor:
+    """Launch the backward composite kernel (csrc/composite_bwd.cu) on
+    PyTorch's current stream. Same contract as `composite_bwd_plain`;
+    `grad_planes` may also be None (zeros) or strided. Counts its launches
+    in `composite_bwd_cuda.launches`."""
+    dev = mean2d.device
+    n_ty, n_tx = _tile_grid(height, width)
+    n_tiles = n_ty * n_tx
+    expect = _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
+                              tile_start, tile_end, n_tiles)
+    expect["t_final"] = (t_final, torch.float32, (height, width))
+    expect["nc"] = (nc, torch.int32, (height, width))
+    _check_kernel_inputs(expect, dev)
+    cot = _cotangent_planes(grad_planes, height, width, dev)
+    _check_kernel_inputs({"grad_planes": (cot, torch.float32, (N_PLANES, height, width))}, dev)
+
+    grads = torch.zeros((mean2d.shape[0], GRAD_COLS), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.composite_bwd(
+            pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
+            color.data_ptr(), depth.data_ptr(), t_final.data_ptr(), nc.data_ptr(),
+            cot.data_ptr(), height, width, n_tx, n_tiles, grads.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
+    composite_bwd_cuda.launches += 1
+    return grads
+
+
+composite_bwd_cuda.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """The composite behind autograd: forward composite, then backward
+    composite, as kernels for CUDA tensors and as plain versions for CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, depth,
                 pair_gaussian, tile_start, tile_end, height, width):
-        planes, nc = composite_fwd_cuda(
-            mean2d, conic, opacity, color, depth,
-            pair_gaussian, tile_start, tile_end, height, width,
-        )
+        fwd = composite_fwd_cuda if mean2d.is_cuda else composite_fwd_plain
+        planes, nc = fwd(mean2d, conic, opacity, color, depth,
+                         pair_gaussian, tile_start, tile_end, height, width)
+        ctx.save_for_backward(mean2d, conic, opacity, color, depth,
+                              pair_gaussian, tile_start, tile_end, planes, nc)
+        ctx.image_size = (height, width)
         ctx.mark_non_differentiable(nc)
         return planes, nc
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("the backward composite kernel is not ported yet")
+    @once_differentiable
+    def backward(ctx, grad_planes, _grad_nc):
+        *inputs, planes, nc = ctx.saved_tensors
+        height, width = ctx.image_size
+        if inputs[0].is_cuda:
+            grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes)
+        else:
+            cot = _cotangent_planes(grad_planes, height, width, inputs[0].device)
+            grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot)
+        return (grads[:, 0:2], grads[:, 2:5], grads[:, 5], grads[:, 6:9], grads[:, 9],
+                None, None, None, None, None)
 
 
-def composite_fwd(
+def composite(
     mean2d: torch.Tensor,
     conic: torch.Tensor,
     opacity: torch.Tensor,
@@ -200,18 +388,16 @@ def composite_fwd(
     height: int,
     width: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Composite on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Returns (planes (5,H,W), nc (H,W))."""
-    args = (
+    """Differentiable composite on the tensors' device: the CUDA kernels for
+    CUDA tensors, the plain versions for CPU tensors. Returns
+    (planes (5,H,W), nc (H,W))."""
+    if mean2d.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no composite for device {mean2d.device}")
+    return _Composite.apply(
         mean2d.contiguous(), conic.contiguous(), opacity.contiguous(), color.contiguous(),
         depth.contiguous(), binning.pair_gaussian, binning.tile_start,
         binning.tile_end, height, width,
     )
-    if mean2d.is_cuda:
-        return _CompositeFwd.apply(*args)
-    if mean2d.device.type != "cpu":
-        raise ValueError(f"no composite for device {mean2d.device}")
-    return composite_fwd_plain(*args)
 
 
 def rasterize_cuda(
@@ -227,17 +413,19 @@ def rasterize_cuda(
     sh_degree: int = 0,
     scale_modifier: float = 1.0,
     antialiasing: bool = False,
+    mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     pair_capacity: int | None = None,
 ) -> RenderOutput:
     """Fast equivalent of `rasterize_reference` (same contract) at 16x16
-    tiles. `pair_capacity` bounds the pair list; pairs beyond it are
-    dropped and counted in `overflow`."""
+    tiles, differentiable through the composite kernels. `pair_capacity`
+    bounds the pair list; pairs beyond it are dropped and counted in
+    `overflow`."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
         scale_modifier=scale_modifier, antialiasing=antialiasing,
-        alive=alive, radius_mode="tight",
+        mean2d_offset=mean2d_offset, alive=alive, radius_mode="tight",
     )
     h, w = cam.height, cam.width
     n_ty, n_tx = _tile_grid(h, w)
@@ -245,7 +433,7 @@ def rasterize_cuda(
         proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
         pair_capacity=pair_capacity,
     )
-    planes, _nc = composite_fwd(
+    planes, _nc = composite(
         proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth,
         binning, h, w,
     )

@@ -1,5 +1,6 @@
 """Oracle rasterizer: a slow, exact, sequential torch Gaussian splatting
-renderer (port of `gaussian_mesh_splatting_tpu/ops/rasterize_reference.py`).
+renderer (port of `gaussian_mesh_splatting_tpu/ops/rasterize_reference.py`),
+differentiable by autograd.
 
 It is the behavioural specification the fast path is held against:
   * Gaussians processed in increasing view depth (stable sort, invalid
@@ -53,10 +54,11 @@ def _composite_sequential(
     tile_y = (torch.arange(height, device=dev) // tile_h)[:, None]
     n_tiles_x = -(-width // tile_w)
     n_tiles_y = -(-height // tile_h)
-    xmin, xmax, ymin, ymax = tile_rect(
-        proj.mean2d, proj.radius_x, tile_h, tile_w, n_tiles_y, n_tiles_x,
-        radius_y=proj.radius_y,
-    )
+    with torch.no_grad():  # integer rects: no gradient flows through them
+        xmin, xmax, ymin, ymax = tile_rect(
+            proj.mean2d, proj.radius_x, tile_h, tile_w, n_tiles_y, n_tiles_x,
+            radius_y=proj.radius_y,
+        )
     # a Gaussian with an empty rect or culled composites nothing: skip it
     touches = proj.valid & (xmax > xmin) & (ymax > ymin)
 
@@ -73,7 +75,7 @@ def _composite_sequential(
         dx = proj.mean2d[i, 0] - px
         dy = proj.mean2d[i, 1] - py
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(proj.opacity[i] * torch.exp(power), ALPHA_MAX)
+        alpha = torch.minimum(proj.opacity[i] * torch.exp(power), power.new_tensor(ALPHA_MAX))
         contributes = in_rect & (power <= 0.0) & (alpha >= ALPHA_MIN)
         alpha = torch.where(contributes, alpha, 0.0)
         test_T = T * (1.0 - alpha)
@@ -100,16 +102,20 @@ def rasterize_reference(
     sh_degree: int = 0,
     scale_modifier: float = 1.0,
     antialiasing: bool = False,
+    mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     tile_size: tuple[int, int] = (16, 16),
 ) -> RenderOutput:
     """Render one camera view with the oracle (see module docstring).
-    Exactly one of `shs` / `colors` is used, as in the JAX package."""
+    Exactly one of `shs` / `colors` is used, as in the JAX package. It is
+    differentiable by autograd, which gives the reference gradients;
+    `mean2d_offset` (zeros (N, 2)) exposes the screen-space positional
+    gradient."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
         scale_modifier=scale_modifier, antialiasing=antialiasing,
-        alive=alive, radius_mode="tight",
+        mean2d_offset=mean2d_offset, alive=alive, radius_mode="tight",
     )
     order = torch.argsort(torch.where(proj.valid, proj.depth, torch.inf), stable=True)
     image, depth, alpha = _composite_sequential(

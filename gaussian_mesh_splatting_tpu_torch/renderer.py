@@ -31,14 +31,19 @@ def render(
     scale_modifier: float = 1.0,
     antialiasing: bool = False,
     backend: Backend = "auto",
+    mean2d_offset: torch.Tensor | None = None,
     **backend_kwargs,
 ) -> RenderOutput:
-    """Render a GaussianBag through one camera. `backend_kwargs` forward to
-    the selected rasterizer (`pair_capacity=` for cuda/auto, `tile_size=`
-    for reference)."""
+    """Render a GaussianBag through one camera.
+
+    `mean2d_offset`: optional zeros (N, 2); pass it and differentiate w.r.t.
+    it to obtain screen-space positional gradients for densification.
+    `backend_kwargs` forward to the selected rasterizer (`pair_capacity=`
+    for cuda/auto, `tile_size=` for reference)."""
     common = dict(
         bg=bg, shs=bag.shs, sh_degree=sh_degree, scale_modifier=scale_modifier,
-        antialiasing=antialiasing, alive=bag.alive, **backend_kwargs,
+        antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=bag.alive,
+        **backend_kwargs,
     )
     args = (bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam)
     if backend == "reference":

@@ -1,16 +1,20 @@
 """Scene orchestrator (port of `gaussian_mesh_splatting_tpu/scene/__init__.py`):
 detect the dataset type from the files on disk and the gs_type, run the
 matching reader, build the camera lists, and build the initial model state.
-Only the Blender and Blender_Mesh formats are ported so far."""
+With a `model_path` it also writes the model directory's `input.ply` (the
+initial point cloud) and `cameras.json`. Only the Blender and Blender_Mesh
+formats are ported so far."""
 from __future__ import annotations
 
+import json
 import os
 import random
+import shutil
 
 import torch
 
 from ..device import resolve_device
-from .cameras import camera_list
+from .cameras import camera_list, camera_to_json
 from .dataset_readers import SCENE_LOAD_CALLBACKS, MeshPointCloud, SceneInfo
 
 
@@ -34,6 +38,7 @@ class Scene:
         source_path: str,
         gs_type: str = "gs",
         *,
+        model_path: str | None = None,
         white_background: bool = False,
         eval: bool = False,
         resolution: int = -1,
@@ -51,6 +56,19 @@ class Scene:
         else:
             info = reader(source_path, white_background, eval)
         self.scene_info = info
+        self.cameras_extent = float(info.nerf_normalization["radius"])
+
+        if model_path:
+            os.makedirs(model_path, exist_ok=True)
+            if os.path.exists(info.ply_path):
+                shutil.copyfile(info.ply_path, os.path.join(model_path, "input.ply"))
+            cams_json = [
+                camera_to_json(i, c)
+                for i, c in enumerate(info.train_cameras + info.test_cameras)
+            ]
+            with open(os.path.join(model_path, "cameras.json"), "w") as f:
+                json.dump(cams_json, f)
+
         if shuffle:
             random.Random(seed).shuffle(info.train_cameras)
         self.train_cameras = camera_list(info.train_cameras, resolution, device=self.device)

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.camera import Camera, make_camera
+from ..core.camera import Camera, fov2focal, make_camera, world_to_view
 from .dataset_readers import CameraInfo
 
 
@@ -60,3 +60,19 @@ def camera_list(
 ) -> list[tuple[Camera, np.ndarray]]:
     return [load_camera(i, resolution, device=device) for i in infos]
 
+
+def camera_to_json(uid: int, info: CameraInfo) -> dict:
+    """cameras.json entry for viewer interop (reference
+    utils/camera_utils.py:62-82)."""
+    W2C = world_to_view(info.R, info.T)
+    C2W = np.linalg.inv(W2C)
+    return {
+        "id": uid,
+        "img_name": info.image_name,
+        "width": info.width,
+        "height": info.height,
+        "position": C2W[:3, 3].tolist(),
+        "rotation": [x.tolist() for x in C2W[:3, :3]],
+        "fy": fov2focal(info.fovy, info.height),
+        "fx": fov2focal(info.fovx, info.width),
+    }

@@ -116,3 +116,84 @@ def test_preprocess_colors_passthrough_and_culling():
     np.testing.assert_array_equal(tp.color.numpy(), colors)
     for f in ("mean2d", "conic", "radius_x", "radius_y"):
         _rel_close(getattr(tp, f), getattr(jp, f))
+
+
+def _grads_close(t_grads, j_grads):
+    for name, j in j_grads.items():
+        t = t_grads[name]
+        assert torch.isfinite(t).all(), name
+        _rel_close(t, j)
+
+
+def test_sh_colour_clamp_tie_gradient_matches_jax():
+    """Where SH colour + 0.5 is exactly 0, jnp.maximum passes half of the
+    gradient; the port must too (torch.clamp_min would pass all of it)."""
+    import jax
+
+    from gaussian_mesh_splatting_tpu.ops.projection import sh_colors as j_sh_colors
+    from gaussian_mesh_splatting_tpu_torch.core.sh import C0
+    from gaussian_mesh_splatting_tpu_torch.ops.projection import sh_colors as t_sh_colors
+
+    rng = np.random.default_rng(5)
+    n = 8
+    shs = (rng.standard_normal((n, 3, 1)) * 0.5).astype(np.float32)
+    # an f32 DC coefficient whose product with C0 rounds to exactly -0.5
+    c0 = np.float32(C0)
+    dc = np.float32(-0.5) / c0
+    for k in range(16):
+        cand = dc + np.float32(k // 2 * (-1) ** k) * np.spacing(dc)
+        if np.float32(c0 * cand) == np.float32(-0.5):
+            dc = cand
+            break
+    shs[::2, 1, 0] = dc
+    means = rng.standard_normal((n, 3)).astype(np.float32)
+    campos = np.array([0.3, -0.2, 4.0], np.float32)
+    weights = rng.standard_normal((n, 3)).astype(np.float32)
+
+    def j_loss(s):
+        return jnp.sum(weights * j_sh_colors(0, s, jnp.asarray(means), jnp.asarray(campos)))
+
+    j_colour = np.asarray(j_sh_colors(0, jnp.asarray(shs), jnp.asarray(means),
+                                      jnp.asarray(campos)))
+    jg = jax.grad(j_loss)(jnp.asarray(shs))
+    ts = torch.tensor(shs, requires_grad=True)
+    t_colour = t_sh_colors(0, ts, torch.tensor(means), torch.tensor(campos))
+    (torch.tensor(weights) * t_colour).sum().backward()
+    # the ties are really there, on both sides
+    assert (j_colour[::2, 1] == 0).all() and (t_colour[::2, 1] == 0).all()
+    _grads_close({"shs": ts.grad}, {"shs": jg})
+
+
+def test_mesh_relu_tie_gradients_match_jax():
+    """Raw barycentric weights and per-splat scales at exactly 0 put the
+    mesh model's two relus on their kink: jax.nn.relu and torch.relu both
+    pass no gradient there."""
+    import jax
+
+    jstate = _jax_mesh_state(seed=4)
+    p = dict(jstate["params"])
+    alpha = np.asarray(p["alpha"]).copy()
+    alpha[::3, 0, 1] = 0.0
+    scale = np.asarray(p["scale"]).copy()
+    scale[::5] = 0.0
+    p["alpha"], p["scale"] = jnp.asarray(alpha), jnp.asarray(scale)
+    jstate = {**jstate, "params": p}
+    n = scale.shape[0]
+    rng = np.random.default_rng(6)
+    w_xyz = rng.standard_normal((n, 3)).astype(np.float32)
+    w_scaling = rng.standard_normal((n, 3)).astype(np.float32)
+
+    def j_loss(alpha, scale):
+        bag = jmesh.to_bag({**jstate, "params": {**p, "alpha": alpha, "scale": scale}})
+        return jnp.sum(w_xyz * bag.xyz) + jnp.sum(w_scaling * bag.scaling)
+
+    jg = jax.grad(j_loss, argnums=(0, 1))(p["alpha"], p["scale"])
+    tstate = state_from_numpy("gs_mesh", _to_numpy(jstate), device="cpu")
+    for k in ("alpha", "scale"):
+        tstate["params"][k].requires_grad_(True)
+    bag = tmesh.to_bag(tstate)
+    ((torch.tensor(w_xyz) * bag.xyz).sum() + (torch.tensor(w_scaling) * bag.scaling).sum()
+     ).backward()
+    tg = {k: tstate["params"][k].grad for k in ("alpha", "scale")}
+    assert (tg["scale"][::5] == 0).all() and (np.asarray(jg[1])[::5] == 0).all()
+    _grads_close(tg, {"alpha": jg[0], "scale": jg[1]})
