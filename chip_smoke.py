@@ -13,9 +13,12 @@ Phases (any failure exits nonzero; nothing is caught):
      800x800, SH degree 3), on a non-aligned 803x611 view, on a dense scene
      that drives pixels to termination and on an empty (all culled) one:
      the forward composite (B1) on its outputs, the backward composite (B2)
-     on seeded cotangents and on the photometric loss's cotangent; then the
-     CUDA render and its gradients against the sequential torch oracle and
-     its autograd on a small scene;
+     on seeded cotangents and on the photometric loss's cotangent; each
+     case prints how many of its tiles walk a ragged list of over two
+     batches and how many have a warp that includes nothing beside one that
+     does (the kernels' special paths; one case at least must have each);
+     then the CUDA render and its gradients against the sequential torch
+     oracle and its autograd on a small scene;
   3. drive the render path through the user's entry point: a seeded
      Blender_Mesh dataset whose images the port renders from a seeded
      teacher, a `gs_mesh` model directory of the teacher, and
@@ -28,7 +31,11 @@ Phases (any failure exits nonzero; nothing is caught):
      renders through `apps.render`;
   5. time the render path per view, the training path's own step per stage
      (CUDA events at the stage boundaries it marks), and the package's
-     fwd+bwd bench (which refuses zero gradients);
+     fwd+bwd bench (which refuses zero gradients); print how the pairs and
+     the walked steps spread over the tiles, and each kernel's time on its
+     longest tile alone (the critical path: a tile's walk is serial), launch
+     by launch and with the launches queued back to back (`cuda_ms_queued`:
+     the device time without the host's share of a single launch);
   6. print the kernels line (with each kernel's launches on the render and
      on the training path, and its bound from the operations that this
      run's data needs), the card's name and power limit, and last the
@@ -178,10 +185,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
+    """Time per call (ms) of `reps` calls queued back to back between one pair
+    of CUDA events: where the device work of a call outlasts the host's work
+    to launch it, the host's share hides behind the device's and this is the
+    device time alone."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def composite_inputs(bag, cam, sh_degree):
+    """(projection, binning, the composite's arguments as the plain versions
+    take them, the kernels' own layout inputs as the render path makes them)."""
     from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
-    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE, pack_attributes
 
     proj = preprocess(bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam,
                       shs=bag.shs, sh_degree=sh_degree, alive=bag.alive, radius_mode="tight")
@@ -190,15 +218,78 @@ def composite_inputs(bag, cam, sh_degree):
     args = (proj.mean2d.contiguous(), proj.conic.contiguous(), proj.opacity.contiguous(),
             proj.color.contiguous(), proj.depth.contiguous(), binning.pair_gaussian,
             binning.tile_start, binning.tile_end, cam.height, cam.width)
-    return proj, binning, args
+    layout = {"tile_order": binning.tile_order, "attrs": pack_attributes(*args[:5])}
+    return proj, binning, args, layout
 
 
-def composite_op_counts(args, nc) -> dict:
+def tile_pixels(h: int, w: int, n_tiles: int, dev):
+    """Pixel coordinates (n_tiles, 256) of each 16x16 tile in the kernels'
+    thread order (a warp is an 8x4 patch), and which lie inside the image."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE
+
+    n_tx = -(-w // TILE)
+    tile = torch.arange(n_tiles, device=dev)[:, None]
+    tid = torch.arange(TILE * TILE, device=dev)[None, :]
+    warp, lane = tid // 32, tid % 32
+    px = (tile % n_tx) * TILE + (warp % 2) * 8 + lane % 8
+    py = (tile // n_tx) * TILE + (warp // 2) * 4 + lane // 8
+    return px, py, (px < w) & (py < h)
+
+
+def walk_shape(args, nc, fwd_steps=None) -> dict:
+    """How the walks of these inputs spread over the tiles: pairs per tile,
+    the steps B2 walks (min(pairs, largest nc of the tile)) and, where the
+    replay counted them, the steps B1 walks (ranks at which some pixel of the
+    tile was not yet done). Also how many tiles take the kernels' special
+    paths: a ragged pair list over two batches of 256, and a warp whose
+    pixels include nothing (nc = 0) beside a warp that includes something."""
+    import torch
+
+    tile_start, tile_end, h, w = args[6:10]
+    n_tiles = int(tile_start.shape[0])
+    px, py, inside = tile_pixels(h, w, n_tiles, nc.device)
+    tile_nc = torch.where(inside, nc.long()[py.clamp_max(h - 1), px.clamp_max(w - 1)], 0)
+    warp_nc = tile_nc.reshape(n_tiles, 8, 32).amax(dim=2)
+    count = (tile_end - tile_start).long()
+    bwd_steps = torch.minimum(count, warp_nc.amax(dim=1))
+
+    def spread(x):
+        x = x.float()
+        q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], device=x.device)).tolist()
+        return {"sum": int(x.sum()), "max": int(x.max()), "argmax": int(x.argmax()),
+                "p50": q[0], "p90": q[1], "p99": q[2], "nonzero": int((x > 0).sum())}
+
+    res = {"tiles": n_tiles, "pairs_per_tile": spread(count), "bwd_steps": spread(bwd_steps),
+           "tiles_ragged_over_two_batches": int(((count > 512) & (count % 256 != 0)).sum()),
+           "tiles_with_idle_and_busy_warps": int(
+               ((warp_nc.amin(dim=1) == 0) & (warp_nc.amax(dim=1) > 0)).sum())}
+    if fwd_steps is not None:
+        res["fwd_steps"] = spread(fwd_steps)
+    return res
+
+
+def one_tile(args, tile: int):
+    """The same inputs with every tile's pair range emptied but `tile`'s, and
+    the tile order that goes with them: a launch on them times that tile's
+    walk alone."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.binning import tile_launch_order
+
+    tile_start, tile_end = torch.zeros_like(args[6]), torch.zeros_like(args[7])
+    tile_start[tile], tile_end[tile] = args[6][tile], args[7][tile]
+    return (*args[:6], tile_start, tile_end, *args[8:]), tile_launch_order(tile_start, tile_end)
+
+
+def composite_op_counts(args, nc) -> tuple[dict, "torch.Tensor"]:
     """The (pixel, pair) evaluations that B1 and B2 make on these inputs,
     split by how far each gets (FWD_FLOPS, BWD_FLOPS): a replay of the
     forward walk over every tile and pixel. Checks that B2's rule (rank
     below nc, power <= 0, alpha >= 1/255) picks exactly the pairs that the
-    forward composited."""
+    forward composited. Also returns, per tile, the steps of B1's walk: the
+    ranks at which some pixel of the tile was not yet done."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -221,6 +312,7 @@ def composite_op_counts(args, nc) -> dict:
     T = torch.ones((n_tiles, TILE * TILE), device=dev)
     done = ~inside
     totals = torch.zeros(8, dtype=torch.long, device=dev)
+    fwd_steps = torch.zeros(n_tiles, dtype=torch.long, device=dev)
     for k in range(int(count.max().item()) if n_pairs else 0):
         active = (count > k)[:, None]
         g = pair_gaussian[torch.clamp_max(start + k, n_pairs - 1)].long()
@@ -233,6 +325,7 @@ def composite_op_counts(args, nc) -> dict:
         near = power <= 0.0
         hit = near & (alpha >= ALPHA_MIN)
         walked = active & ~done
+        fwd_steps += walked.any(dim=1)
         test_T = T * (1.0 - alpha)
         stop = walked & hit & (test_T < T_EPS)
         composited = walked & hit & ~stop
@@ -251,17 +344,17 @@ def composite_op_counts(args, nc) -> dict:
         raise SystemExit(f"B2's inclusion rule disagrees with the forward walk: {counts}")
     counts["fwd_flops"] = sum(f * n for f, n in zip(FWD_FLOPS, t[0:4]))
     counts["bwd_flops"] = sum(f * n for f, n in zip(BWD_FLOPS, t[4:8]))
-    return counts
+    return counts, fwd_steps
 
 
-def compare_composite(label: str, args, time_it: bool) -> dict:
+def compare_composite(label: str, args, layout, time_it: bool) -> dict:
     """Kernel vs plain version on the same inputs, on the card."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
         composite_fwd_cuda, composite_fwd_plain)
 
-    planes_k, nc_k = composite_fwd_cuda(*args)
+    planes_k, nc_k = composite_fwd_cuda(*args, **layout)
     planes_p, nc_p = composite_fwd_plain(*args)
     torch.cuda.synchronize()
     err_img = (planes_k[:4] - planes_p[:4]).abs().max().item()  # r, g, b, T (= 1 - alpha)
@@ -279,16 +372,20 @@ def compare_composite(label: str, args, time_it: bool) -> dict:
         # least time: bytes each input read once + outputs written once, and
         # the operations of the (pixel, pair) evaluations this data needs
         n_tiles = int(tile_start.shape[0])
-        ops = composite_op_counts(args, nc_p)
+        ops, fwd_steps = composite_op_counts(args, nc_p)
+        res["walk"] = walk_shape(args, nc_p, fwd_steps)
         bytes_moved = 4 * n_pairs + 8 * n_tiles + 40 * mean2d.shape[0] + 24 * h * w
         t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
         t_ops = ops["fwd_flops"] / H100_F32_FLOPS * 1e3
         res.update(
-            ms=cuda_ms(lambda: composite_fwd_cuda(*args), reps=20),
+            ms=cuda_ms(lambda: composite_fwd_cuda(*args, **layout), reps=20),
+            queued_ms=cuda_ms_queued(lambda: composite_fwd_cuda(*args, **layout), reps=20),
             plain_ms=cuda_ms(lambda: composite_fwd_plain(*args), reps=10, warmup=1),
             **{k: v for k, v in ops.items() if k.startswith("fwd_")}, bytes=bytes_moved,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
+    else:
+        res["walk"] = walk_shape(args, nc_p)
     log(f"  B1 {label}: {json.dumps(res)}")
     if not ok:
         raise SystemExit(f"B1 disagrees with its plain version on {label}")
@@ -351,7 +448,7 @@ def photometric_cotangent(planes, teacher, bg):
     return g
 
 
-def compare_composite_bwd(label: str, args, teacher, time_it: bool) -> dict:
+def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool) -> dict:
     """B2 vs its plain version on the same inputs and cotangents, on the
     card: a seeded normal cotangent of all five planes, and the photometric
     loss's cotangent against `teacher` (white background)."""
@@ -362,7 +459,7 @@ def compare_composite_bwd(label: str, args, teacher, time_it: bool) -> dict:
 
     dev = args[0].device
     h, w = args[8], args[9]
-    planes, nc = composite_fwd_cuda(*args)
+    planes, nc = composite_fwd_cuda(*args, **layout)
     rng = np.random.default_rng(11)
     cots = {
         "seeded": torch.as_tensor(rng.standard_normal((5, h, w)).astype(np.float32), device=dev),
@@ -371,7 +468,7 @@ def compare_composite_bwd(label: str, args, teacher, time_it: bool) -> dict:
     empty = args[5].shape[0] == 0
     res = {"case": label, "pairs": int(args[5].shape[0]), "ok": True}
     for name, cot in cots.items():
-        g_k = composite_bwd_cuda(*args, planes[3], nc, cot)
+        g_k = composite_bwd_cuda(*args, planes[3], nc, cot, **layout)
         g_p = composite_bwd_plain(*args, planes[3], nc, cot)
         torch.cuda.synchronize()
         scale = g_p.abs().amax(dim=0)
@@ -391,12 +488,15 @@ def compare_composite_bwd(label: str, args, teacher, time_it: bool) -> dict:
         # the (N, 10) gradients written once; operations: the (pixel, pair)
         # evaluations up to each pixel's nc, by how far each gets
         n_pairs, n_tiles, n = int(args[5].shape[0]), int(args[6].shape[0]), int(args[0].shape[0])
-        ops = composite_op_counts(args, nc)
+        ops, _ = composite_op_counts(args, nc)
+        res["walk"] = walk_shape(args, nc)
         bytes_moved = 4 * n_pairs + 8 * n_tiles + 40 * n + 28 * h * w + 40 * n
         t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
         t_ops = ops["bwd_flops"] / H100_F32_FLOPS * 1e3
         res.update(
-            ms=cuda_ms(lambda: composite_bwd_cuda(*args, planes[3], nc, cot), reps=20),
+            ms=cuda_ms(lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
+            queued_ms=cuda_ms_queued(
+                lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
             plain_ms=cuda_ms(lambda: composite_bwd_plain(*args, planes[3], nc, cot),
                              reps=3, warmup=1),
             **{k: v for k, v in ops.items() if k.startswith("bwd_")}, bytes=bytes_moved,
@@ -405,6 +505,7 @@ def compare_composite_bwd(label: str, args, teacher, time_it: bool) -> dict:
     log(f"  B2 {label}: {json.dumps(res)}")
     if not res["ok"]:
         raise SystemExit(f"B2 disagrees with its plain version on {label}")
+    res.update(planes=planes, nc=nc, cot=cots["photometric"])
     return res
 
 
@@ -480,15 +581,86 @@ def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
 
     with torch.no_grad():
         bag = mesh_model.to_bag(state.model_state())
-        _, _, args = composite_inputs(bag, cam, SH_DEGREE)
-        planes, nc = rc.composite_fwd_cuda(*args)
+        _, _, args, layout = composite_inputs(bag, cam, SH_DEGREE)
+        planes, nc = rc.composite_fwd_cuda(*args, **layout)
     cot = photometric_cotangent(planes, gt, bg)
-    split["b2_ms"] = cuda_ms(lambda: rc.composite_bwd_cuda(*args, planes[3], nc, cot), reps=reps)
+    split["b2_ms"] = cuda_ms(
+        lambda: rc.composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=reps)
     image = (planes[:3].permute(1, 2, 0) + planes[3][..., None] * bg).requires_grad_(True)
     split["loss_fwd_bwd_ms"] = cuda_ms(
         lambda: torch.autograd.grad(photometric_loss(image, gt, 0.2)[0], image), reps=reps)
     split["backward_rest_ms"] = split["backward_ms"] - split["b2_ms"]
     return split
+
+
+def build_scene(dev):
+    """The main paths' seeded data under WORK: the Blender_Mesh dataset, the
+    seed-42 teacher state with its model directory, the GT images rendered
+    from it, and the fresh student's Gaussians."""
+    import types
+
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.io.checkpoint import snapshot_dir
+    from gaussian_mesh_splatting_tpu_torch.io.config_io import save_cfg
+    from gaussian_mesh_splatting_tpu_torch.io.snapshots import save_snapshot
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.scene import Scene
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    data_dir, model_dir = os.path.join(WORK, "scene"), os.path.join(WORK, "model")
+    train_dir = os.path.join(WORK, "train_model")
+    os.makedirs(data_dir)
+    write_dataset(data_dir)
+    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
+    init_state = scene.init_model_state(mesh_model, SH_DEGREE)
+    state = randomize_state(init_state, seed=42)
+    iteration = 30000
+    save_snapshot("gs_mesh", mesh_model, state, snapshot_dir(model_dir, iteration))
+    save_cfg(model_dir, {"source_path": data_dir, "gs_type": "gs_mesh", "sh_degree": SH_DEGREE,
+                         "num_splats": NUM_SPLATS, "white_background": True, "eval": True})
+    with torch.no_grad():
+        bag = mesh_model.to_bag(state)
+        student_bag = mesh_model.to_bag(init_state)
+    render_gt_images(scene, bag, data_dir)
+    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
+    log(f"    gs_mesh scene: {bag.num_gaussians} Gaussians, "
+        f"{state['consts']['faces'].shape[0]} faces, {SIZE}x{SIZE}, SH {SH_DEGREE}; "
+        f"GT images rendered from the seed-42 teacher")
+    return types.SimpleNamespace(
+        scene=scene, state=state, bag=bag, student_bag=student_bag, data_dir=data_dir,
+        model_dir=model_dir, train_dir=train_dir, iteration=iteration)
+
+
+def kernel_cases(ns, dev) -> dict:
+    """The inputs the kernels are held against their plain versions on, as
+    (args, layout) of `composite_inputs`: the render path's (teacher, train
+    view 0), the training path's first step (fresh student, same view), a
+    non-aligned 803x611 view, a dense scene that drives pixels to
+    termination, and an empty (all culled) one."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.core.camera import focal2fov, fov2focal, make_camera
+
+    with torch.no_grad():
+        cam0 = ns.scene.train_cameras[0][0]
+        info = ns.scene.scene_info.train_cameras[0]
+        cam_na = make_camera(np.asarray(info.R), np.asarray(info.T), FOVX,
+                             focal2fov(fov2focal(FOVX, 803), 611), 803, 611, device=dev)
+        cam_dense = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 0.8, 0.8, 512, 512,
+                                device=dev)
+        cam_small = make_camera(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.8, 200, 50,
+                                device=dev)
+        culled = dense_scene(64, 3, dev)
+        culled = dataclasses.replace(culled, xyz=culled.xyz - torch.tensor([0.0, 0.0, 100.0],
+                                                                           device=dev))
+        return {
+            "full": composite_inputs(ns.bag, cam0, SH_DEGREE)[2:],
+            "train": composite_inputs(ns.student_bag, cam0, SH_DEGREE)[2:],
+            "nonaligned": composite_inputs(ns.bag, cam_na, SH_DEGREE)[2:],
+            "dense": composite_inputs(dense_scene(4000, 2, dev), cam_dense, 3)[2:],
+            "empty": composite_inputs(culled, cam_small, 3)[2:],
+        }
 
 
 def main() -> int:
@@ -503,16 +675,12 @@ def main() -> int:
     from gaussian_mesh_splatting_tpu_torch import bench
     from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
-    from gaussian_mesh_splatting_tpu_torch.core.camera import focal2fov, fov2focal, make_camera
-    from gaussian_mesh_splatting_tpu_torch.io.checkpoint import snapshot_dir
-    from gaussian_mesh_splatting_tpu_torch.io.config_io import save_cfg
-    from gaussian_mesh_splatting_tpu_torch.io.snapshots import save_snapshot
+    from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
     from gaussian_mesh_splatting_tpu_torch.ops import cuda_build, rasterize_cuda as rc
-    from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians
+    from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians, tile_launch_order
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_reference import rasterize_reference
-    from gaussian_mesh_splatting_tpu_torch.scene import Scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -536,58 +704,32 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
     log(f"    phase 1: {time.perf_counter() - t0:.2f} s")
 
-    # ---- scene, GT images and the teacher's model directory (seeded) ---------
-    shutil.rmtree(WORK, ignore_errors=True)
-    data_dir, model_dir = os.path.join(WORK, "scene"), os.path.join(WORK, "model")
-    train_dir = os.path.join(WORK, "train_model")
-    os.makedirs(data_dir)
-    write_dataset(data_dir)
-    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
-    init_state = scene.init_model_state(mesh_model, SH_DEGREE)
-    state = randomize_state(init_state, seed=42)
-    iteration = 30000
-    save_snapshot("gs_mesh", mesh_model, state, snapshot_dir(model_dir, iteration))
-    save_cfg(model_dir, {"source_path": data_dir, "gs_type": "gs_mesh", "sh_degree": SH_DEGREE,
-                         "num_splats": NUM_SPLATS, "white_background": True, "eval": True})
-    with torch.no_grad():
-        bag = mesh_model.to_bag(state)
-        student_bag = mesh_model.to_bag(init_state)
-    render_gt_images(scene, bag, data_dir)
-    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
-    log(f"    gs_mesh scene: {bag.num_gaussians} Gaussians, "
-        f"{state['consts']['faces'].shape[0]} faces, {SIZE}x{SIZE}, SH {SH_DEGREE}; "
-        f"GT images rendered from the seed-42 teacher")
+    ns = build_scene(dev)
+    scene, state, bag, student_bag = ns.scene, ns.state, ns.bag, ns.student_bag
+    data_dir, model_dir, train_dir, iteration = ns.data_dir, ns.model_dir, ns.train_dir, ns.iteration
 
     # ---- 2. kernels against their plain versions on the card ---------------
     log("[2] B1 composite_fwd vs its plain version (tolerance 2e-5 rgb/T, "
         "2e-4*max|depth| depth, 0 nc mismatches)")
     t0 = time.perf_counter()
+    cases = kernel_cases(ns, dev)
+    args_full, layout_full = cases["full"]
+    args_train, layout_train = cases["train"]
+    cam0, gt0 = scene.train_cameras[0]
+    gt0 = torch.as_tensor(gt0, device=dev)
     with torch.no_grad():
-        cam0, gt0 = scene.train_cameras[0]
-        gt0 = torch.as_tensor(gt0, device=dev)
-        _, _, args_full = composite_inputs(bag, cam0, SH_DEGREE)
-        full = compare_composite("gs_mesh 800x800", args_full, time_it=True)
-        R = np.asarray(scene.scene_info.train_cameras[0].R)
-        T = np.asarray(scene.scene_info.train_cameras[0].T)
-        cam_na = make_camera(R, T, FOVX, focal2fov(fov2focal(FOVX, 803), 611), 803, 611,
-                             device=dev)
-        args_na = composite_inputs(bag, cam_na, SH_DEGREE)[2]
-        compare_composite("gs_mesh 803x611", args_na, False)
-        cam_dense = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 0.8, 0.8, 512, 512,
-                                device=dev)
-        args_dense = composite_inputs(dense_scene(4000, 2, dev), cam_dense, 3)[2]
-        dense = compare_composite("dense overlap 512x512", args_dense, False)
+        full = compare_composite("gs_mesh 800x800", *cases["full"], time_it=True)
+        fwd_walks = [full["walk"],
+                     compare_composite("gs_mesh 803x611", *cases["nonaligned"], False)["walk"]]
+        dense = compare_composite("dense overlap 512x512", *cases["dense"], False)
+        fwd_walks.append(dense["walk"])
         if dense["frac_T_below_1e-3"] < 0.1:
             raise SystemExit("the dense case does not drive pixels to termination")
-        cam_small = make_camera(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.8, 200, 50,
-                                device=dev)
-        culled = dense_scene(64, 3, dev)
-        culled = dataclasses.replace(culled, xyz=culled.xyz - torch.tensor([0.0, 0.0, 100.0],
-                                                                           device=dev))
-        args_empty = composite_inputs(culled, cam_small, 3)[2]
-        empty = compare_composite("empty (all culled) 200x50", args_empty, False)
+        empty = compare_composite("empty (all culled) 200x50", *cases["empty"], False)
         if empty["pairs"] != 0:
             raise SystemExit("the culled scene still binned pairs")
+        cam_small = make_camera(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.8, 200, 50,
+                                device=dev)
         # the whole CUDA render against the sequential torch oracle
         small = dense_scene(96, 5, dev)
         bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
@@ -609,14 +751,17 @@ def main() -> int:
     def random_teacher(h, w):
         return torch.as_tensor(rng.random((h, w, 3)).astype(np.float32), device=dev)
 
-    with torch.no_grad():
-        # the training path's first step: the fresh student against the GT
-        _, _, args_train = composite_inputs(student_bag, cam0, SH_DEGREE)
-    full_bwd = compare_composite_bwd("gs_mesh 800x800 (student vs GT)", args_train, gt0,
+    # the training path's first step: the fresh student against the GT
+    full_bwd = compare_composite_bwd("gs_mesh 800x800 (student vs GT)", *cases["train"], gt0,
                                      time_it=True)
-    compare_composite_bwd("gs_mesh 803x611", args_na, random_teacher(611, 803), False)
-    compare_composite_bwd("dense overlap 512x512", args_dense, random_teacher(512, 512), False)
-    compare_composite_bwd("empty (all culled) 200x50", args_empty, random_teacher(50, 200), False)
+    compare_composite_bwd("gs_mesh 803x611", *cases["nonaligned"], random_teacher(611, 803), False)
+    compare_composite_bwd("dense overlap 512x512", *cases["dense"], random_teacher(512, 512),
+                          False)
+    compare_composite_bwd("empty (all culled) 200x50", *cases["empty"], random_teacher(50, 200),
+                          False)
+    for key in ("tiles_ragged_over_two_batches", "tiles_with_idle_and_busy_warps"):
+        if not any(walk[key] for walk in fwd_walks + [full_bwd["walk"]]):
+            raise SystemExit(f"no case has {key}: a path of the kernels went unchecked")
     grad_err = oracle_gradients(cam_small)
     log(f"  CUDA rasterizer gradients vs torch oracle autograd (96 Gaussians, 200x50): "
         f"max err / max|g| {grad_err:.3g}")
@@ -657,7 +802,7 @@ def main() -> int:
     with Image.open(os.path.join(model_dir, "train", f"ours_{iteration}", "renders_gs_mesh",
                                  "00000.png")) as im:
         img = np.asarray(im, dtype=np.int32)
-    planes = rc.composite_fwd_cuda(*args_full)[0]
+    planes = rc.composite_fwd_cuda(*args_full, **layout_full)[0]
     expect = planes[:3].permute(1, 2, 0) + planes[3][..., None]  # white bg
     expect = (torch.clamp(expect, 0, 1) * 255).to(torch.uint8).cpu().numpy()
     diff = np.abs(expect.astype(np.int32) - img).max()
@@ -725,13 +870,43 @@ def main() -> int:
             "to_bag_ms": cuda_ms(lambda: mesh_model.to_bag(state), reps=10),
             "preprocess_ms": cuda_ms(do_pre, reps=10),
             "binning_ms": cuda_ms(do_bin, reps=10),
-            "composite_ms": cuda_ms(lambda: rc.composite_fwd_cuda(*args_full), reps=10),
+            "tile_order_ms": cuda_ms(lambda: tile_launch_order(args_full[6], args_full[7]),
+                                     reps=10),
+            "pack_attributes_ms": cuda_ms(lambda: rc.pack_attributes(*args_full[:5]), reps=10),
+            "composite_ms": cuda_ms(lambda: rc.composite_fwd_cuda(*args_full, **layout_full),
+                                    reps=10),
             "render_ms": cuda_ms(lambda: rc.rasterize_cuda(
                 bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam0,
                 bg=torch.ones(3, device=dev), shs=bag.shs, sh_degree=SH_DEGREE,
                 alive=bag.alive), reps=10),
         }
     log(f"[5] render per view, 800x800: {json.dumps(split)}")
+    # the critical path: each kernel on its longest tile alone, beside the
+    # whole launch and a launch in which every tile is empty
+    no_tile = torch.zeros_like(args_full[6])
+    critical = {}
+    for name, args, layout, steps, launch in (
+            ("composite_fwd", args_full, layout_full, full["walk"]["fwd_steps"],
+             lambda a, lay: rc.composite_fwd_cuda(*a, **lay)),
+            ("composite_bwd", args_train, layout_train, full_bwd["walk"]["bwd_steps"],
+             lambda a, lay: rc.composite_bwd_cuda(*a, full_bwd["planes"][3], full_bwd["nc"],
+                                                  full_bwd["cot"], **lay))):
+        alone, order = one_tile(args, steps["argmax"])
+        empty_args = (*args[:6], no_tile, no_tile, *args[8:])
+        critical[name] = {
+            "walk_steps": {k: steps[k] for k in ("sum", "max", "p50", "p90", "p99", "nonzero")},
+            "longest_tile": steps["argmax"],
+            "longest_tile_alone_ms": cuda_ms(
+                lambda: launch(alone, {**layout, "tile_order": order}), reps=20),
+            "all_tiles_empty_ms": cuda_ms(lambda: launch(empty_args, layout), reps=20),
+            "full_ms": cuda_ms(lambda: launch(args, layout), reps=20),
+            "queued_longest_tile_alone_ms": cuda_ms_queued(
+                lambda: launch(alone, {**layout, "tile_order": order}), reps=20),
+            "queued_all_tiles_empty_ms": cuda_ms_queued(
+                lambda: launch(empty_args, layout), reps=20),
+            "queued_full_ms": cuda_ms_queued(lambda: launch(args, layout), reps=20),
+        }
+    log(f"    critical path, 800x800 (steps per tile; ms): {json.dumps(critical)}")
     step_split = train_step_split(result.state, cam0, gt0, torch.ones(3, device=dev))
     log(f"    train step at step {TRAIN_ITERS}, 800x800: {json.dumps(step_split)}")
     bench_res = bench.run(n=100_000, size=SIZE, iters=10, device=dev)
@@ -749,6 +924,7 @@ def main() -> int:
         "launches_train": fwd_launches,
         "max_abs_err": full["max_abs_err_rgbT"],
         "ms": full["ms"],
+        "queued_ms": full["queued_ms"],
         "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
@@ -763,6 +939,7 @@ def main() -> int:
         "launches_train": bwd_launches,
         "max_abs_err": full_bwd["photometric"]["max_abs_err"],
         "ms": full_bwd["ms"],
+        "queued_ms": full_bwd["queued_ms"],
         "plain_ms": full_bwd["plain_ms"],
         "bound_ms": full_bwd["bound_ms"],
         "bound_by": full_bwd["bound_by"],

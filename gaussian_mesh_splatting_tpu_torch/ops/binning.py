@@ -8,7 +8,10 @@ The GPU-natural form of `gaussian_mesh_splatting_tpu/ops/binning.py`:
   3. pair expansion with `repeat_interleave` and an integer tile decode;
   4. ONE sort on the int64 key (tile << 32) | depth_rank, which orders
      pairs by tile and, within a tile, front to back;
-  5. per-tile [start, end) ranges by binary search of the sorted tiles.
+  5. per-tile [start, end) ranges by binary search of the sorted tiles;
+  6. the order in which the composite kernels take the tiles: by falling
+     pair count, so the tiles with the longest walks start first and the
+     short ones fill in behind them (`tile_launch_order`).
 
 Sizing the pair list needs the total pair count on the host: one `.item()`
 synchronisation per render. With `pair_capacity` the first pairs in
@@ -28,6 +31,7 @@ class Binning(NamedTuple):
     pair_gaussian: torch.Tensor  # (P,) int32 ORIGINAL Gaussian ids, sorted by (tile, depth)
     tile_start: torch.Tensor  # (T,) int32 first pair of each tile
     tile_end: torch.Tensor  # (T,) int32 one past the last pair of each tile
+    tile_order: torch.Tensor  # (T,) int32 tiles by falling pair count (ties: by tile index)
     gaussian_order: torch.Tensor  # (N,) int64 stable depth argsort
     overflow: int  # pairs dropped for capacity
 
@@ -60,6 +64,13 @@ def tile_rect(
     xmax = torch.where(empty, xmin, xmax)
     ymax = torch.where(empty, ymin, ymax)
     return xmin, xmax, ymin, ymax
+
+
+def tile_launch_order(tile_start: torch.Tensor, tile_end: torch.Tensor) -> torch.Tensor:
+    """The tiles (T,) int32 by falling pair count, ties in tile order: block i
+    of a composite kernel takes tile `order[i]`. A tile's walk is serial and
+    cannot be spread over blocks, so the longest tiles start first."""
+    return torch.argsort(tile_end - tile_start, descending=True, stable=True).to(torch.int32)
 
 
 @torch.no_grad()
@@ -111,6 +122,7 @@ def bin_gaussians(
         pair_gaussian=pair_gaussian,
         tile_start=tile_start,
         tile_end=tile_end,
+        tile_order=tile_launch_order(tile_start, tile_end),
         gaussian_order=order,
         overflow=total - n_pairs,
     )

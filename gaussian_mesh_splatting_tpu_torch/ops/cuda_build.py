@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 sm_90a into `build/kernels/` at the repository root (listed in .gitignore),
-under a file name keyed on a hash of the source and the flags, and loaded
+under a file name keyed on a hash of the source, the headers (`csrc/*.cuh`)
+and the flags, and loaded
 with `ctypes`. The build happens at first use, in the process that launches
 the kernel; nothing is built when a module is imported.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -39,14 +41,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def source_digest(name: str) -> str:
+    """The build key of csrc/<name>.cu: a hash of the flags, the source and
+    every header beside it (a source includes them by name)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> tuple[str, float, str]:
     """Compile csrc/<name>.cu unless a build of this exact source exists.
 
     Returns (library path, build seconds (0 if cached), compiler log)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
     if os.path.exists(out):
         return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -3,10 +3,13 @@
 
   preprocess (torch)           project / cull / conic / SH, ops/projection.py
   bin_gaussians (torch)        depth-ordered per-tile pair lists, ops/binning.py
+  pack_attributes (torch)      the ten per-Gaussian attributes as one (N, 12)
+                               table: a row is three 16-byte words
   composite (CUDA kernels)     forward: per-tile front-to-back composite,
                                csrc/composite_fwd.cu; backward: per-tile
                                back-to-front re-walk into per-Gaussian
-                               gradients, csrc/composite_bwd.cu
+                               gradients, csrc/composite_bwd.cu; both take
+                               the tiles in the binning's `tile_order`
   background + outputs (torch) image = rgb + T * bg
 
 One `torch.autograd.Function` (`_Composite`) joins the two: its forward is
@@ -34,6 +37,7 @@ from .rasterize_reference import ALPHA_MAX, ALPHA_MIN, T_EPS, RenderOutput
 TILE = 16  # the kernels' tile edge (one block of TILE*TILE threads per tile)
 N_PLANES = 5  # r, g, b, T_final, depth
 GRAD_COLS = 10  # per-Gaussian gradient columns: mx, my, a, b, c, op, r, g, b, z
+ROW = 12  # floats per packed row (attributes in, gradients out): GRAD_COLS + 2 of padding
 
 
 def _tile_grid(height: int, width: int) -> tuple[int, int]:
@@ -47,6 +51,31 @@ def _tile_pixels(n_tiles_x: int, n_tiles: int, dev) -> tuple[torch.Tensor, torch
     px = ((tiles % n_tiles_x)[:, None] * TILE + (lin % TILE)[None, :]).to(torch.float32)
     py = ((tiles // n_tiles_x)[:, None] * TILE + (lin // TILE)[None, :]).to(torch.float32)
     return px, py
+
+
+def pack_attributes(mean2d: torch.Tensor, conic: torch.Tensor, opacity: torch.Tensor,
+                    color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """The kernels' input table (N, ROW) float32: columns mx, my, a, b, c, op,
+    r, g, b, z and two of zero padding, so that a Gaussian's row is 48 bytes
+    (three 16-byte words) at a 16-byte-aligned offset."""
+    n = mean2d.shape[0]
+    pad = torch.zeros((n, ROW - GRAD_COLS), dtype=mean2d.dtype, device=mean2d.device)
+    return torch.cat([mean2d, conic, opacity[:, None], color, depth[:, None], pad], dim=1)
+
+
+def split_columns(table: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The (mean2d, conic, opacity, color, depth) column views of a packed
+    attribute table, or of a gradient table (N, >= GRAD_COLS), which has the
+    same columns."""
+    return table[:, 0:2], table[:, 2:5], table[:, 5], table[:, 6:9], table[:, 9]
+
+
+def gradient_buffer(n: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's zeroed output (N, ROW) float32, whose rows are
+    16-byte aligned for vector atomics, and its (N, GRAD_COLS) view of the
+    gradient columns (row stride ROW)."""
+    buf = torch.zeros((n, ROW), dtype=torch.float32, device=dev)
+    return buf, buf[:, :GRAD_COLS]
 
 
 def composite_fwd_plain(
@@ -194,13 +223,20 @@ def composite_bwd_plain(
     return grads
 
 
+# C interfaces of csrc/composite_fwd.cu and csrc/composite_bwd.cu
+# fwd: pair_gaussian, tile_start, tile_end, tile_order, attrs; height, width,
+#      n_tiles_x, n_tiles; out, out_nc, stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+# bwd: pair_gaussian, tile_start, tile_end, tile_order, attrs, t_final, nc,
+#      grad_planes; height, width, n_tiles_x, n_tiles; grads, stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+
+
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("composite_fwd")
     lib.composite_fwd.restype = ctypes.c_int
-    lib.composite_fwd.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    )
+    lib.composite_fwd.argtypes = FWD_ARGTYPES
     return lib
 
 
@@ -208,9 +244,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("composite_bwd")
     lib.composite_bwd.restype = ctypes.c_int
-    lib.composite_bwd.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    )
+    lib.composite_bwd.argtypes = BWD_ARGTYPES
     return lib
 
 
@@ -229,7 +263,7 @@ def _check_kernel_inputs(expect: dict, dev: torch.device) -> None:
 def _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
                      tile_start, tile_end, n_tiles) -> dict:
     n = mean2d.shape[0]
-    if n * GRAD_COLS >= 2**31 or pair_gaussian.shape[0] >= 2**31:
+    if n * ROW >= 2**31 or pair_gaussian.shape[0] >= 2**31:
         raise ValueError("the kernels index with 32-bit integers")
     return {
         "mean2d": (mean2d, torch.float32, (n, 2)),
@@ -243,6 +277,18 @@ def _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
     }
 
 
+def _check_kernel_layout(tile_order, attrs, n, n_tiles, dev) -> None:
+    """The kernels' own two inputs, which the render path makes once and shares
+    between the forward and the backward: the tile order and the packed
+    attribute table."""
+    _check_kernel_inputs({
+        "tile_order": (tile_order, torch.int32, (n_tiles,)),
+        "attrs": (attrs, torch.float32, (n, ROW)),
+    }, dev)
+    if attrs.data_ptr() % 16:
+        raise ValueError("attrs must be 16-byte aligned (the kernels copy rows in 16-byte words)")
+
+
 def composite_fwd_cuda(
     mean2d: torch.Tensor,
     conic: torch.Tensor,
@@ -254,15 +300,22 @@ def composite_fwd_cuda(
     tile_end: torch.Tensor,
     height: int,
     width: int,
+    *,
+    tile_order: torch.Tensor,
+    attrs: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward composite kernel (csrc/composite_fwd.cu) on
-    PyTorch's current stream. Same contract as `composite_fwd_plain`. Counts
-    its launches in `composite_fwd_cuda.launches`."""
+    PyTorch's current stream. Same contract as `composite_fwd_plain`, with
+    the kernel's own two inputs beside: `tile_order` (`Binning.tile_order`)
+    and `attrs` (`pack_attributes` of the five attribute tensors). Counts its
+    launches in `composite_fwd_cuda.launches`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
-    _check_kernel_inputs(_gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
-                                          tile_start, tile_end, n_tiles), dev)
+    gaussians = (mean2d, conic, opacity, color, depth)
+    _check_kernel_inputs(_gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end,
+                                          n_tiles), dev)
+    _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
 
     planes = torch.empty((N_PLANES, height, width), dtype=torch.float32, device=dev)
     nc = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -271,8 +324,7 @@ def composite_fwd_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.composite_fwd(
             pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
-            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
-            color.data_ptr(), depth.data_ptr(),
+            tile_order.data_ptr(), attrs.data_ptr(),
             height, width, n_tx, n_tiles,
             planes.data_ptr(), nc.data_ptr(), stream,
         )
@@ -312,31 +364,36 @@ def composite_bwd_cuda(
     t_final: torch.Tensor,
     nc: torch.Tensor,
     grad_planes: torch.Tensor | None,
+    *,
+    tile_order: torch.Tensor,
+    attrs: torch.Tensor,
 ) -> torch.Tensor:
     """Launch the backward composite kernel (csrc/composite_bwd.cu) on
-    PyTorch's current stream. Same contract as `composite_bwd_plain`;
-    `grad_planes` may also be None (zeros) or strided. Counts its launches
-    in `composite_bwd_cuda.launches`."""
+    PyTorch's current stream. Same contract as `composite_bwd_plain`, but the
+    (N, 10) result is a view of the kernel's (N, 12) output (row stride 12);
+    `grad_planes` may also be None (zeros) or strided; `tile_order` and
+    `attrs` as for `composite_fwd_cuda`. Counts its launches in
+    `composite_bwd_cuda.launches`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
-    expect = _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
-                              tile_start, tile_end, n_tiles)
+    gaussians = (mean2d, conic, opacity, color, depth)
+    expect = _gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end, n_tiles)
     expect["t_final"] = (t_final, torch.float32, (height, width))
     expect["nc"] = (nc, torch.int32, (height, width))
     _check_kernel_inputs(expect, dev)
     cot = _cotangent_planes(grad_planes, height, width, dev)
     _check_kernel_inputs({"grad_planes": (cot, torch.float32, (N_PLANES, height, width))}, dev)
+    _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
 
-    grads = torch.zeros((mean2d.shape[0], GRAD_COLS), dtype=torch.float32, device=dev)
+    buf, grads = gradient_buffer(mean2d.shape[0], dev)
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.composite_bwd(
             pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
-            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
-            color.data_ptr(), depth.data_ptr(), t_final.data_ptr(), nc.data_ptr(),
-            cot.data_ptr(), height, width, n_tx, n_tiles, grads.data_ptr(), stream,
+            tile_order.data_ptr(), attrs.data_ptr(), t_final.data_ptr(), nc.data_ptr(),
+            cot.data_ptr(), height, width, n_tx, n_tiles, buf.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
@@ -354,12 +411,18 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, depth,
-                pair_gaussian, tile_start, tile_end, height, width):
-        fwd = composite_fwd_cuda if mean2d.is_cuda else composite_fwd_plain
-        planes, nc = fwd(mean2d, conic, opacity, color, depth,
-                         pair_gaussian, tile_start, tile_end, height, width)
-        ctx.save_for_backward(mean2d, conic, opacity, color, depth,
-                              pair_gaussian, tile_start, tile_end, planes, nc)
+                pair_gaussian, tile_start, tile_end, tile_order, height, width):
+        gaussians = (mean2d, conic, opacity, color, depth)
+        lists = (pair_gaussian, tile_start, tile_end)
+        if mean2d.is_cuda:
+            # packed once, read by the forward kernel and again by the backward
+            attrs = pack_attributes(*gaussians)
+            planes, nc = composite_fwd_cuda(*gaussians, *lists, height, width,
+                                            tile_order=tile_order, attrs=attrs)
+            ctx.save_for_backward(*gaussians, *lists, planes, nc, tile_order, attrs)
+        else:
+            planes, nc = composite_fwd_plain(*gaussians, *lists, height, width)
+            ctx.save_for_backward(*gaussians, *lists, planes, nc)
         ctx.image_size = (height, width)
         ctx.mark_non_differentiable(nc)
         return planes, nc
@@ -367,15 +430,16 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_planes, _grad_nc):
-        *inputs, planes, nc = ctx.saved_tensors
+        *inputs, planes, nc = ctx.saved_tensors[:10]
         height, width = ctx.image_size
         if inputs[0].is_cuda:
-            grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes)
+            tile_order, attrs = ctx.saved_tensors[10:]
+            grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes,
+                                       tile_order=tile_order, attrs=attrs)
         else:
             cot = _cotangent_planes(grad_planes, height, width, inputs[0].device)
             grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot)
-        return (grads[:, 0:2], grads[:, 2:5], grads[:, 5], grads[:, 6:9], grads[:, 9],
-                None, None, None, None, None)
+        return (*split_columns(grads), None, None, None, None, None, None)
 
 
 def composite(
@@ -396,7 +460,7 @@ def composite(
     return _Composite.apply(
         mean2d.contiguous(), conic.contiguous(), opacity.contiguous(), color.contiguous(),
         depth.contiguous(), binning.pair_gaussian, binning.tile_start,
-        binning.tile_end, height, width,
+        binning.tile_end, binning.tile_order, height, width,
     )
 
 

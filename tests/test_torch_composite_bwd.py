@@ -114,7 +114,8 @@ def test_bwd_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rc.composite_bwd_cuda(z(4, 2), z(4, 3), z(4), z(4, 3), z(4), z(0, dtype=torch.int32),
                               z(1, dtype=torch.int32), z(1, dtype=torch.int32), 16, 16,
-                              z(16, 16), z(16, 16, dtype=torch.int32), z(5, 16, 16))
+                              z(16, 16), z(16, 16, dtype=torch.int32), z(5, 16, 16),
+                              tile_order=z(1, dtype=torch.int32), attrs=z(4, 12))
 
 
 def test_cotangent_planes_are_materialized_and_checked():

@@ -102,4 +102,5 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     z = torch.zeros
     with pytest.raises(ValueError, match="CUDA"):
         composite_fwd_cuda(z(4, 2), z(4, 3), z(4), z(4, 3), z(4), z(0, dtype=torch.int32),
-                           z(1, dtype=torch.int32), z(1, dtype=torch.int32), 16, 16)
+                           z(1, dtype=torch.int32), z(1, dtype=torch.int32), 16, 16,
+                           tile_order=z(1, dtype=torch.int32), attrs=z(4, 12))

@@ -23,6 +23,7 @@ import chip_smoke as cs
 
 def build_variant(fmad: bool) -> ctypes.CDLL:
     from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import FWD_ARGTYPES
 
     flags = [f for f in cuda_build.NVCC_FLAGS if not f.startswith("-fmad")]
     flags.append(f"-fmad={'true' if fmad else 'false'}")
@@ -34,19 +35,19 @@ def build_variant(fmad: bool) -> ctypes.CDLL:
                    check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(out)
     lib.composite_fwd.restype = ctypes.c_int
-    lib.composite_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.composite_fwd.argtypes = FWD_ARGTYPES
     return lib
 
 
-def launch(lib, args):
+def launch(lib, args, layout):
     import torch
 
-    mean2d, conic, opacity, color, depth, pg, ts, te, h, w = args
+    mean2d, pg, ts, te, h, w = args[0], *args[5:]
     planes = torch.empty((5, h, w), dtype=torch.float32, device=mean2d.device)
     nc = torch.empty((h, w), dtype=torch.int32, device=mean2d.device)
-    err = lib.composite_fwd(pg.data_ptr(), ts.data_ptr(), te.data_ptr(), mean2d.data_ptr(),
-                            conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
-                            depth.data_ptr(), h, w, -(-w // 16), -(-h // 16) * -(-w // 16),
+    err = lib.composite_fwd(pg.data_ptr(), ts.data_ptr(), te.data_ptr(),
+                            layout["tile_order"].data_ptr(), layout["attrs"].data_ptr(),
+                            h, w, -(-w // 16), -(-h // 16) * -(-w // 16),
                             planes.data_ptr(), nc.data_ptr(),
                             torch.cuda.current_stream().cuda_stream)
     if err:
@@ -85,11 +86,11 @@ def main() -> int:
                 np.eye(3), np.array([0.0, 0.0, 3.0]), 0.8, 0.8, 512, 512, device=dev), 3),
         }
         for label, (b, cam, deg) in cases.items():
-            args = cs.composite_inputs(b, cam, deg)[2]
+            args, layout = cs.composite_inputs(b, cam, deg)[2:]
             planes_p, nc_p = composite_fwd_plain(*args)
             row = {"case": label}
             for name, lib in libs.items():
-                planes, nc = launch(lib, args)
+                planes, nc = launch(lib, args, layout)
                 row[name] = {
                     "max_abs_err_rgbT": (planes[:4] - planes_p[:4]).abs().max().item(),
                     "max_abs_err_depth": (planes[4] - planes_p[4]).abs().max().item(),
@@ -98,7 +99,7 @@ def main() -> int:
             order = list(libs) + list(libs)[::-1]
             times: dict = {name: [] for name in libs}
             for name in order:
-                times[name].append(cs.cuda_ms(lambda: launch(libs[name], args), reps=20))
+                times[name].append(cs.cuda_ms(lambda: launch(libs[name], args, layout), reps=20))
             for name in libs:
                 row[name]["ms"] = float(np.median(times[name]))
             print(json.dumps(row), flush=True)
