@@ -10,8 +10,10 @@ Phases (any failure exits nonzero; nothing is caught):
      nvcc (sm_90a), one nvcc per source, all started together;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (the 5120-face, 51,200-Gaussian `gs_mesh` scene at
-     800x800, SH degree 3), on a non-aligned 803x611 view, on a dense scene
-     that drives pixels to termination and on an empty (all culled) one:
+     800x800, SH degree 3; the first step of the `gs` path: 100,000 isotropic
+     Gaussians of opacity 0.1 alive in a 400,000-row buffer), on a
+     non-aligned 803x611 view, on a dense scene that drives pixels to
+     termination and on an empty (all culled) one:
      the forward composite (B1) on its outputs, the backward composite (B2)
      on seeded cotangents and on the photometric loss's cotangent; each
      case prints how many of its tiles walk a ragged list of over two
@@ -29,17 +31,35 @@ Phases (any failure exits nonzero; nothing is caught):
      for TRAIN_ITERS steps; the loss must fall, the test PSNR rise, B2
      launch once per step and B1 once per step and eval view; the snapshot
      renders through `apps.render`;
-  5. time the render path per view, the training path's own step per stage
-     (CUDA events at the stage boundaries it marks), and the package's
+  5. drive the `gs` training path (vanilla 3DGS from a point cloud, with
+     density control) through the user's entry points: the same cameras and
+     GT images in a dataset of its own with no `points3d.ply`, so that the
+     Blender reader makes its 100,000 seeded points; `apps.train.main([...
+     "--gs_type", "gs", ...])` at the default `--capacity_mult 4` (400,000
+     rows), the schedule brought forward through the CLI's own flags so that
+     GS_ITERS steps hold several densify events (some with the size threshold
+     on) and opacity resets; clones, split rows and prunes must all occur, the
+     alive count change and stay within the capacity, every param stay
+     finite, the loss fall, the test PSNR rise, B2 launch once per step and B1
+     once per step and eval view; a checkpoint is written on the way, a
+     second short run resumes from it at that step with the same alive count,
+     and `apps.render` renders the `gs` snapshot; then a short `gs_flat`
+     run on the same dataset (FLAT_ITERS steps, one opacity reset, one
+     event), whose snapshot `apps.render` renders as `gs_flat` and, through
+     its triangle soup, as `gs_points`: the two must agree;
+  6. time the render path per view, the training paths' own step per stage
+     (CUDA events at the stage boundaries it marks; the `gs` path's at its
+     last state and at a fresh first state, 100,000 alive), one densify
+     event, the KNN scale init at 100,000 points, and the package's
      fwd+bwd bench (which refuses zero gradients); print how the pairs and
      the walked steps spread over the tiles, and each kernel's time on its
      longest tile alone (the critical path: a tile's walk is serial), launch
      by launch and with the launches queued back to back (`cuda_ms_queued`:
      the device time without the host's share of a single launch);
-  6. print the kernels line (with each kernel's launches on the render and
-     on the training path, and its bound from the operations that this
-     run's data needs), the card's name and power limit, and last the
-     device line.
+  7. print the kernels line (with each kernel's launches on the render path
+     and on each training path, its times and bounds at the `gs_mesh` and at
+     the `gs` inputs, each bound from the operations that this run's data
+     needs), the card's name and power limit, and last the device line.
 Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 """
 from __future__ import annotations
@@ -80,8 +100,22 @@ FWD_FLOPS = (11, 3, 2, 9)
 # (4 + 4 + 3 + 2 + 3 + 1). A composited, unclamped pair costs 61.
 BWD_FLOPS = (11, 3, 29, 18)
 GRAD_TOL = 5e-4  # B2 vs its plain version and the oracle, x max|g| per column
-TRAIN_ITERS = 300
-TEST_ITERS = (1, 100, 200, 300)
+TRAIN_ITERS = 100  # the gs_mesh path (an earlier slice's: cut from 300)
+TEST_ITERS = (1, 100)
+# the gs path: 100,000 points (the Blender reader's), capacity 4x; events at
+# 200, 300, ..., 600 (the size threshold on after 350), opacity resets at 100
+# (white background) and 350, a checkpoint at 400
+GS_POINTS = 100_000
+GS_CAPACITY = 4 * GS_POINTS
+GS_ITERS = 600
+GS_TEST_ITERS = (1, 300, 600)
+GS_SCHEDULE = {"--densify_from_iter": 100, "--densification_interval": 100,
+               "--opacity_reset_interval": 350}
+GS_CHECKPOINT, GS_RESUME_ITERS = 400, 420
+# gs_flat on the same dataset and schedule, cut to one reset and one event
+FLAT_ITERS = 220
+FLAT_TEST_ITERS = (1, 220)
+SOUP_TOL = 2  # gs_points against gs_flat PNGs, in 1/255 (the round trip is float32)
 
 
 def log(msg: str) -> None:
@@ -347,8 +381,9 @@ def composite_op_counts(args, nc) -> tuple[dict, "torch.Tensor"]:
     return counts, fwd_steps
 
 
-def compare_composite(label: str, args, layout, time_it: bool) -> dict:
-    """Kernel vs plain version on the same inputs, on the card."""
+def compare_composite(label: str, args, layout, time_it: bool, plain_reps=(10, 1)) -> dict:
+    """Kernel vs plain version on the same inputs, on the card. `plain_reps`:
+    the (reps, warm-up calls) of the plain version's timing."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -380,7 +415,8 @@ def compare_composite(label: str, args, layout, time_it: bool) -> dict:
         res.update(
             ms=cuda_ms(lambda: composite_fwd_cuda(*args, **layout), reps=20),
             queued_ms=cuda_ms_queued(lambda: composite_fwd_cuda(*args, **layout), reps=20),
-            plain_ms=cuda_ms(lambda: composite_fwd_plain(*args), reps=10, warmup=1),
+            plain_ms=cuda_ms(lambda: composite_fwd_plain(*args), reps=plain_reps[0],
+                             warmup=plain_reps[1]),
             **{k: v for k, v in ops.items() if k.startswith("fwd_")}, bytes=bytes_moved,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
@@ -448,10 +484,12 @@ def photometric_cotangent(planes, teacher, bg):
     return g
 
 
-def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool) -> dict:
+def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
+                          plain_reps=(3, 1)) -> dict:
     """B2 vs its plain version on the same inputs and cotangents, on the
     card: a seeded normal cotangent of all five planes, and the photometric
-    loss's cotangent against `teacher` (white background)."""
+    loss's cotangent against `teacher` (white background). `plain_reps`: the
+    (reps, warm-up calls) of the plain version's timing."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -498,7 +536,7 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool) -> d
             queued_ms=cuda_ms_queued(
                 lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
             plain_ms=cuda_ms(lambda: composite_bwd_plain(*args, planes[3], nc, cot),
-                             reps=3, warmup=1),
+                             reps=plain_reps[0], warmup=plain_reps[1]),
             **{k: v for k, v in ops.items() if k.startswith("bwd_")}, bytes=bytes_moved,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
@@ -548,8 +586,8 @@ def oracle_gradients(cam) -> float:
     return worst
 
 
-def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
-    """Device times (ms, median of `reps`) of the training path's own step
+def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12) -> dict:
+    """Device times (ms, median of `reps`) of a training path's own step
     (`train.loop.make_train_step`, as `apps.train` builds it) at `state`:
     the whole step and each stage, from CUDA events that the step's `mark`
     hook records at its stage boundaries. Also, at the same state, B2 alone
@@ -557,11 +595,12 @@ def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
     training the state."""
     import torch
 
-    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.models import get_model
     from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
     from gaussian_mesh_splatting_tpu_torch.train import make_train_step, optimization_config
     from gaussian_mesh_splatting_tpu_torch.train.loss import photometric_loss
 
+    model = get_model(gs_type)
     stages = ("to_bag", "render", "loss", "backward", "adam", "stats")
     events = {}
 
@@ -569,7 +608,7 @@ def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
         events[stage] = torch.cuda.Event(enable_timing=True)
         events[stage].record()
 
-    step_fn = make_train_step(mesh_model, optimization_config("gs_mesh"), SH_DEGREE, mark=mark)
+    step_fn = make_train_step(model, optimization_config(gs_type), SH_DEGREE, mark=mark)
     times = {f"{k}_ms": [] for k in ("step", *stages)}
     for _ in range(reps + 2):
         step_fn(state, cam, gt, bg)
@@ -580,7 +619,7 @@ def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
     split = {k: statistics.median(v[2:]) for k, v in times.items()}
 
     with torch.no_grad():
-        bag = mesh_model.to_bag(state.model_state())
+        bag = model.to_bag(state.model_state())
         _, _, args, layout = composite_inputs(bag, cam, SH_DEGREE)
         planes, nc = rc.composite_fwd_cuda(*args, **layout)
     cot = photometric_cotangent(planes, gt, bg)
@@ -596,7 +635,11 @@ def train_step_split(state, cam, gt, bg, reps: int = 12) -> dict:
 def build_scene(dev):
     """The main paths' seeded data under WORK: the Blender_Mesh dataset, the
     seed-42 teacher state with its model directory, the GT images rendered
-    from it, and the fresh student's Gaussians."""
+    from it, and the fresh student's Gaussians; for the `gs` path the same
+    cameras and GT images in a directory of its own with no `points3d.ply`
+    (the Blender_Mesh reader leaves the mesh's points under that name), so
+    that the Blender reader makes its 100,000 seeded points, and that path's
+    first-step Gaussians in their 400,000-row buffer."""
     import types
 
     import torch
@@ -605,6 +648,7 @@ def build_scene(dev):
     from gaussian_mesh_splatting_tpu_torch.io.config_io import save_cfg
     from gaussian_mesh_splatting_tpu_torch.io.snapshots import save_snapshot
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.models import vanilla
     from gaussian_mesh_splatting_tpu_torch.scene import Scene
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -627,17 +671,38 @@ def build_scene(dev):
     log(f"    gs_mesh scene: {bag.num_gaussians} Gaussians, "
         f"{state['consts']['faces'].shape[0]} faces, {SIZE}x{SIZE}, SH {SH_DEGREE}; "
         f"GT images rendered from the seed-42 teacher")
+    gs_data_dir = os.path.join(WORK, "gs_scene")
+    os.makedirs(gs_data_dir)
+    for name in ("transforms_train.json", "transforms_test.json"):
+        shutil.copyfile(os.path.join(data_dir, name), os.path.join(gs_data_dir, name))
+    for split in ("train", "test"):
+        shutil.copytree(os.path.join(data_dir, split), os.path.join(gs_data_dir, split))
+    gs_scene = Scene(gs_data_dir, "gs", white_background=True, eval=True, shuffle=False,
+                     device=dev)
+    n_points = len(gs_scene.scene_info.point_cloud.points)
+    if n_points != GS_POINTS or not os.path.exists(os.path.join(gs_data_dir, "points3d.ply")):
+        raise SystemExit(f"the Blender reader made {n_points} points, expected {GS_POINTS}")
+    with torch.no_grad():
+        gs_bag = vanilla.to_bag(gs_scene.init_model_state(vanilla, SH_DEGREE,
+                                                          capacity=GS_CAPACITY))
+    log(f"    gs scene: {int(gs_bag.alive.sum())} Gaussians alive of {gs_bag.num_gaussians} "
+        f"rows, from the Blender reader's seeded points; cameras extent "
+        f"{gs_scene.cameras_extent:.3f}; the same cameras and GT images")
     return types.SimpleNamespace(
         scene=scene, state=state, bag=bag, student_bag=student_bag, data_dir=data_dir,
-        model_dir=model_dir, train_dir=train_dir, iteration=iteration)
+        model_dir=model_dir, train_dir=train_dir, iteration=iteration,
+        gs_scene=gs_scene, gs_bag=gs_bag, gs_data_dir=gs_data_dir,
+        gs_train_dir=os.path.join(WORK, "gs_model"),
+        gs_resume_dir=os.path.join(WORK, "gs_model_resumed"),
+        flat_train_dir=os.path.join(WORK, "gs_flat_model"))
 
 
 def kernel_cases(ns, dev) -> dict:
     """The inputs the kernels are held against their plain versions on, as
     (args, layout) of `composite_inputs`: the render path's (teacher, train
-    view 0), the training path's first step (fresh student, same view), a
-    non-aligned 803x611 view, a dense scene that drives pixels to
-    termination, and an empty (all culled) one."""
+    view 0), the training path's first step (fresh student, same view), the
+    `gs` path's first step (same view), a non-aligned 803x611 view, a dense
+    scene that drives pixels to termination, and an empty (all culled) one."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.core.camera import focal2fov, fov2focal, make_camera
@@ -657,6 +722,7 @@ def kernel_cases(ns, dev) -> dict:
         return {
             "full": composite_inputs(ns.bag, cam0, SH_DEGREE)[2:],
             "train": composite_inputs(ns.student_bag, cam0, SH_DEGREE)[2:],
+            "gs": composite_inputs(ns.gs_bag, cam0, SH_DEGREE)[2:],
             "nonaligned": composite_inputs(ns.bag, cam_na, SH_DEGREE)[2:],
             "dense": composite_inputs(dense_scene(4000, 2, dev), cam_dense, 3)[2:],
             "empty": composite_inputs(culled, cam_small, 3)[2:],
@@ -677,10 +743,14 @@ def main() -> int:
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
     from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.models import vanilla
     from gaussian_mesh_splatting_tpu_torch.ops import cuda_build, rasterize_cuda as rc
     from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians, tile_launch_order
+    from gaussian_mesh_splatting_tpu_torch.ops.knn import knn_scale_init
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_reference import rasterize_reference
+    from gaussian_mesh_splatting_tpu_torch.train import (
+        densify_and_prune, make_train_state, optimization_config)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -719,7 +789,13 @@ def main() -> int:
     gt0 = torch.as_tensor(gt0, device=dev)
     with torch.no_grad():
         full = compare_composite("gs_mesh 800x800", *cases["full"], time_it=True)
-        fwd_walks = [full["walk"],
+        # the plain versions loop over the longest tile's pairs: at this
+        # case's pair count a call takes seconds, so each is timed once
+        gs_fwd = compare_composite(f"gs first step 800x800 ({GS_POINTS} alive of {GS_CAPACITY})",
+                                   *cases["gs"], time_it=True, plain_reps=(1, 0))
+        if gs_fwd["max_abs_err_rgbT"] != 0.0 or gs_fwd["max_abs_err_depth"] != 0.0:
+            raise SystemExit("B1 is not bit-equal to its plain version on the gs case")
+        fwd_walks = [full["walk"], gs_fwd["walk"],
                      compare_composite("gs_mesh 803x611", *cases["nonaligned"], False)["walk"]]
         dense = compare_composite("dense overlap 512x512", *cases["dense"], False)
         fwd_walks.append(dense["walk"])
@@ -754,13 +830,16 @@ def main() -> int:
     # the training path's first step: the fresh student against the GT
     full_bwd = compare_composite_bwd("gs_mesh 800x800 (student vs GT)", *cases["train"], gt0,
                                      time_it=True)
+    gs_bwd = compare_composite_bwd(
+        f"gs first step 800x800 ({GS_POINTS} alive of {GS_CAPACITY}, vs GT)", *cases["gs"], gt0,
+        time_it=True, plain_reps=(1, 0))
     compare_composite_bwd("gs_mesh 803x611", *cases["nonaligned"], random_teacher(611, 803), False)
     compare_composite_bwd("dense overlap 512x512", *cases["dense"], random_teacher(512, 512),
                           False)
     compare_composite_bwd("empty (all culled) 200x50", *cases["empty"], random_teacher(50, 200),
                           False)
     for key in ("tiles_ragged_over_two_batches", "tiles_with_idle_and_busy_warps"):
-        if not any(walk[key] for walk in fwd_walks + [full_bwd["walk"]]):
+        if not any(walk[key] for walk in fwd_walks + [full_bwd["walk"], gs_bwd["walk"]]):
             raise SystemExit(f"no case has {key}: a path of the kernels went unchecked")
     grad_err = oracle_gradients(cam_small)
     log(f"  CUDA rasterizer gradients vs torch oracle autograd (96 Gaussians, 200x50): "
@@ -786,10 +865,11 @@ def main() -> int:
         raise SystemExit(f"expected {n_views} forward and 0 backward launches")
     from PIL import Image
 
-    def check_pngs(model: str, it: int) -> None:
+    def check_pngs(model: str, it: int, gs_type: str = "gs_mesh") -> None:
         for split, n_cams in [("train", N_TRAIN), ("test", N_TEST)]:
             for i in range(n_cams):
-                png = os.path.join(model, split, f"ours_{it}", "renders_gs_mesh", f"{i:05d}.png")
+                png = os.path.join(model, split, f"ours_{it}", f"renders_{gs_type}",
+                                   f"{i:05d}.png")
                 if not os.path.exists(os.path.join(model, split, f"ours_{it}", "gt",
                                                    f"{i:05d}.png")):
                     raise SystemExit(f"missing the GT PNG of {png}")
@@ -851,7 +931,153 @@ def main() -> int:
     check_pngs(train_dir, TRAIN_ITERS)
     log("    the trained snapshot renders through apps.render; all gradients finite")
 
-    # ---- 5. timings ---------------------------------------------------------
+    # ---- 5. the gs training path (densification) through the entry points ---
+    log(f"[5] apps.train.main --gs_type gs on the card: {GS_POINTS} points, capacity "
+        f"{GS_CAPACITY}, {GS_ITERS} steps, schedule {json.dumps(GS_SCHEDULE)}, evals at "
+        f"{list(GS_TEST_ITERS)}, checkpoint at {GS_CHECKPOINT}")
+    gs_argv = ["--gs_type", "gs", "-s", ns.gs_data_dir, "--eval", "--sh_degree", str(SH_DEGREE),
+               "--white_background", *(str(x) for kv in GS_SCHEDULE.items() for x in kv)]
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs_result = train_app.main([
+        *gs_argv, "-m", ns.gs_train_dir, "--iterations", str(GS_ITERS),
+        "--test_iterations", *map(str, GS_TEST_ITERS), "--save_iterations", str(GS_ITERS),
+        "--checkpoint_iterations", str(GS_CHECKPOINT),
+    ])
+    torch.cuda.synchronize()
+    gs_train_s = time.perf_counter() - t0
+    gs_fwd_launches = rc.composite_fwd_cuda.launches
+    gs_bwd_launches = rc.composite_bwd_cuda.launches
+    gs_state, events = gs_result.state, gs_result.densify_events
+    for e in events:
+        log(f"    event {json.dumps(e)}")
+    gs_losses = gs_result.losses
+    gs_first, gs_last = float(np.mean(gs_losses[:20])), float(np.mean(gs_losses[-20:]))
+    gs_psnrs = [gs_result.test_psnr[i] for i in GS_TEST_ITERS]
+    n_gs_evals = len(GS_TEST_ITERS) * N_TEST
+    alive_counts = [GS_POINTS] + [e["n_alive"] for e in events]
+    log(f"    {GS_ITERS} steps in {gs_train_s:.2f} s ({1e3 * gs_train_s / GS_ITERS:.1f} ms per "
+        f"step, scene load, KNN init, events, evals, checkpoint and snapshot included); mean "
+        f"loss first 20 {gs_first:.5f}, last 20 {gs_last:.5f}; test PSNR "
+        f"{json.dumps(dict(zip(GS_TEST_ITERS, gs_psnrs)))}; alive {alive_counts}; "
+        f"composite_fwd launches {gs_fwd_launches}, composite_bwd launches {gs_bwd_launches}")
+    expect_events = [it for it in range(1, GS_ITERS + 1)
+                     if it > GS_SCHEDULE["--densify_from_iter"]
+                     and it % GS_SCHEDULE["--densification_interval"] == 0]
+    if [e["iteration"] for e in events] != expect_events or len(events) < 3:
+        raise SystemExit(f"expected densify events at {expect_events}")
+    sized = [e for e in events if e["iteration"] > GS_SCHEDULE["--opacity_reset_interval"]]
+    if not sized or len(sized) == len(events):
+        raise SystemExit("the run needs events with the size threshold off and on")
+    if GS_ITERS // GS_SCHEDULE["--opacity_reset_interval"] < 1:
+        raise SystemExit("the run holds no opacity reset")
+    totals = {k: sum(e[k] for e in events) for k in ("n_clone", "n_split_rows", "n_pruned")}
+    if min(totals.values()) <= 0:
+        raise SystemExit(f"clones, split rows and prunes must all occur: {totals}")
+    if len(set(alive_counts)) < 2 or max(alive_counts) > GS_CAPACITY:
+        raise SystemExit("the alive count must change and stay within the capacity")
+    if gs_state.alive.shape[0] != GS_CAPACITY or int(gs_state.alive.sum()) != alive_counts[-1]:
+        raise SystemExit("the final state's rows disagree with the last event")
+    if not all(bool(torch.isfinite(p).all()) for p in gs_state.params.values()):
+        raise SystemExit("a param of the gs run is not finite")
+    if not np.isfinite(gs_losses).all() or not gs_last < gs_first:
+        raise SystemExit("the gs training loss did not fall")
+    if not gs_psnrs[-1] > gs_psnrs[0]:
+        raise SystemExit("the gs test PSNR did not rise")
+    if gs_bwd_launches != GS_ITERS or gs_fwd_launches != GS_ITERS + n_gs_evals:
+        raise SystemExit(f"expected {GS_ITERS} backward and {GS_ITERS + n_gs_evals} forward "
+                         "launches")
+    ckpt = train_app.checkpoint_path(ns.gs_train_dir, GS_CHECKPOINT)
+    if not os.path.exists(ckpt):
+        raise SystemExit(f"no checkpoint at {ckpt}")
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    resumed = train_app.main([
+        *gs_argv, "-m", ns.gs_resume_dir, "--iterations", str(GS_RESUME_ITERS),
+        "--test_iterations", str(GS_RESUME_ITERS), "--save_iterations", str(GS_RESUME_ITERS),
+        "--start_checkpoint", ckpt,
+    ])
+    alive_at_ckpt = [e["n_alive"] for e in events if e["iteration"] <= GS_CHECKPOINT][-1]
+    n_resumed = GS_RESUME_ITERS - GS_CHECKPOINT
+    log(f"    resumed from {os.path.relpath(ckpt, ROOT)}: {len(resumed.losses)} steps to step "
+        f"{resumed.state.step}, {int(resumed.state.alive.sum())} alive of "
+        f"{resumed.state.alive.shape[0]} rows (the event at {GS_CHECKPOINT} left "
+        f"{alive_at_ckpt}); composite_bwd launches {rc.composite_bwd_cuda.launches}")
+    if (len(resumed.losses) != n_resumed or resumed.state.step != GS_RESUME_ITERS
+            or int(resumed.state.alive.sum()) != alive_at_ckpt
+            or resumed.state.alive.shape[0] != GS_CAPACITY
+            or rc.composite_bwd_cuda.launches != n_resumed
+            or rc.composite_fwd_cuda.launches != n_resumed + N_TEST):
+        raise SystemExit("the resumed run did not begin at the checkpoint's step and rows")
+    if not np.isfinite(resumed.losses).all():
+        raise SystemExit("a loss of the resumed run is not finite")
+    rc.composite_fwd_cuda.launches = 0
+    render_app.main(["-m", ns.gs_train_dir])
+    if rc.composite_fwd_cuda.launches != n_views:
+        raise SystemExit("the gs snapshot did not render through the kernel")
+    check_pngs(ns.gs_train_dir, GS_ITERS, "gs")
+    log(f"    the gs snapshot renders through apps.render ({n_views} PNGs); all params finite")
+
+    log(f"[5] apps.train.main --gs_type gs_flat on the card: {FLAT_ITERS} steps, the same "
+        f"dataset and schedule, evals at {list(FLAT_TEST_ITERS)}")
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    flat_result = train_app.main([
+        "--gs_type", "gs_flat", *gs_argv[2:], "-m", ns.flat_train_dir,
+        "--iterations", str(FLAT_ITERS), "--test_iterations", *map(str, FLAT_TEST_ITERS),
+        "--save_iterations", str(FLAT_ITERS),
+    ])
+    flat_fwd_launches = rc.composite_fwd_cuda.launches
+    flat_bwd_launches = rc.composite_bwd_cuda.launches
+    flat_state, flat_events = flat_result.state, flat_result.densify_events
+    flat_first = float(np.mean(flat_result.losses[:20]))
+    flat_last = float(np.mean(flat_result.losses[-20:]))
+    flat_psnrs = [flat_result.test_psnr[i] for i in FLAT_TEST_ITERS]
+    log(f"    events {json.dumps(flat_events)}; mean loss first 20 {flat_first:.5f}, last 20 "
+        f"{flat_last:.5f}; test PSNR {json.dumps(dict(zip(FLAT_TEST_ITERS, flat_psnrs)))}; "
+        f"composite_fwd launches {flat_fwd_launches}, composite_bwd launches {flat_bwd_launches}")
+    if (len(flat_events) != 1 or flat_events[0]["n_pruned"] <= 0
+            or not 0 < flat_events[0]["n_alive"] <= GS_CAPACITY
+            or int(flat_state.alive.sum()) != flat_events[0]["n_alive"]):
+        raise SystemExit("the gs_flat run needs one event that prunes within the capacity")
+    if tuple(flat_state.params["scaling"].shape) != (GS_CAPACITY, 2):
+        raise SystemExit("a gs_flat state has two scaling columns")
+    if not all(bool(torch.isfinite(p).all()) for p in flat_state.params.values()):
+        raise SystemExit("a param of the gs_flat run is not finite")
+    if not np.isfinite(flat_result.losses).all() or not flat_last < flat_first:
+        raise SystemExit("the gs_flat training loss did not fall")
+    if not flat_psnrs[-1] > flat_psnrs[0]:
+        raise SystemExit("the gs_flat test PSNR did not rise")
+    n_flat_evals = len(FLAT_TEST_ITERS) * N_TEST
+    if flat_bwd_launches != FLAT_ITERS or flat_fwd_launches != FLAT_ITERS + n_flat_evals:
+        raise SystemExit(f"expected {FLAT_ITERS} backward and {FLAT_ITERS + n_flat_evals} "
+                         "forward launches")
+    # the snapshot as flat Gaussians and as the triangle soup made from them
+    rc.composite_fwd_cuda.launches = 0
+    render_app.main(["-m", ns.flat_train_dir])
+    render_app.main(["-m", ns.flat_train_dir, "--gs_type", "gs_points"])
+    if rc.composite_fwd_cuda.launches != 2 * n_views:
+        raise SystemExit("the gs_flat snapshot did not render through the kernel")
+    check_pngs(ns.flat_train_dir, FLAT_ITERS, "gs_flat")
+    check_pngs(ns.flat_train_dir, FLAT_ITERS, "gs_points")
+    soup_diff = []
+    for split, n_cams in [("train", N_TRAIN), ("test", N_TEST)]:
+        for i in range(n_cams):
+            pngs = [os.path.join(ns.flat_train_dir, split, f"ours_{FLAT_ITERS}",
+                                 f"renders_{t}", f"{i:05d}.png") for t in ("gs_flat", "gs_points")]
+            with Image.open(pngs[0]) as a, Image.open(pngs[1]) as b:
+                soup_diff.append(np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32)))
+    soup_diff = np.stack(soup_diff)
+    soup = {"max_abs_diff_255": int(soup_diff.max()),
+            "frac_pixels_over_1_255": float((soup_diff.max(axis=-1) > 1).mean())}
+    log(f"    gs_points against gs_flat renders of the snapshot ({n_views} views; tolerance "
+        f"{SOUP_TOL}/255 on every pixel): {json.dumps(soup)}")
+    if soup["max_abs_diff_255"] > SOUP_TOL:
+        raise SystemExit("the gs_points render of the soup differs from the gs_flat render")
+
+    # ---- 6. timings ---------------------------------------------------------
     with torch.no_grad():
         n_ty, n_tx = -(-cam0.height // rc.TILE), -(-cam0.width // rc.TILE)
 
@@ -880,7 +1106,7 @@ def main() -> int:
                 bg=torch.ones(3, device=dev), shs=bag.shs, sh_degree=SH_DEGREE,
                 alive=bag.alive), reps=10),
         }
-    log(f"[5] render per view, 800x800: {json.dumps(split)}")
+    log(f"[6] render per view, 800x800: {json.dumps(split)}")
     # the critical path: each kernel on its longest tile alone, beside the
     # whole launch and a launch in which every tile is empty
     no_tile = torch.zeros_like(args_full[6])
@@ -907,43 +1133,83 @@ def main() -> int:
             "queued_full_ms": cuda_ms_queued(lambda: launch(args, layout), reps=20),
         }
     log(f"    critical path, 800x800 (steps per tile; ms): {json.dumps(critical)}")
-    step_split = train_step_split(result.state, cam0, gt0, torch.ones(3, device=dev))
-    log(f"    train step at step {TRAIN_ITERS}, 800x800: {json.dumps(step_split)}")
+    step_split = train_step_split("gs_mesh", result.state, cam0, gt0, torch.ones(3, device=dev))
+    log(f"    gs_mesh train step at step {TRAIN_ITERS}, 800x800: {json.dumps(step_split)}")
+    gs_alive = int(gs_state.alive.sum())
+    gs_split = train_step_split("gs", gs_state, cam0, gt0, torch.ones(3, device=dev))
+    log(f"    gs train step at step {GS_ITERS} ({gs_alive} alive of {GS_CAPACITY} rows), "
+        f"800x800: {json.dumps(gs_split)}")
+    # the same step where the path begins: a fresh state, every point alive
+    gs_fresh = make_train_state(
+        ns.gs_scene.init_model_state(vanilla, SH_DEGREE, capacity=GS_CAPACITY),
+        optimization_config("gs"), ns.gs_scene.cameras_extent)
+    gs_split_first = train_step_split("gs", gs_fresh, cam0, gt0, torch.ones(3, device=dev))
+    log(f"    gs train step at a fresh state ({int(gs_fresh.alive.sum())} alive of {GS_CAPACITY} "
+        f"rows), 800x800: {json.dumps(gs_split_first)}")
+    del gs_fresh
+    # one densify event at the gs path's last state (it has the statistics of
+    # the steps just timed) and the KNN scale init of the path's point cloud
+    event_kw = dict(grad_threshold=2e-4, min_opacity=0.005, extent=ns.gs_scene.cameras_extent,
+                    percent_dense=0.01, size_threshold=20.0, scaling_cols=3,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, info = densify_and_prune(gs_state, **event_kw)
+    end.record()
+    end.synchronize()
+    points = torch.as_tensor(ns.gs_scene.scene_info.point_cloud.points, device=dev)
+    gs_times = {
+        "densify_event_ms": start.elapsed_time(end),
+        "densify_event_counts": {k: int(v) for k, v in info.items()},
+        "knn_scale_init_ms": cuda_ms(lambda: knn_scale_init(points), reps=2, warmup=1),
+    }
+    log(f"    gs path, {gs_alive} alive of {GS_CAPACITY} rows / {GS_POINTS} points: "
+        f"{json.dumps(gs_times)}")
     bench_res = bench.run(n=100_000, size=SIZE, iters=10, device=dev)
     log(f"    bench (100k Gaussians, 800x800, SH 3, fwd+bwd+update): {json.dumps(bench_res)}")
-    log(f"    script so far: {time.perf_counter() - t_script:.1f} s")
+    log(f"    script so far (wall): {time.perf_counter() - t_script:.1f} s")
 
-    # ---- 6. output lines ----------------------------------------------------
+    # ---- 7. output lines ----------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "gaussian_mesh_splatting_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gaussian_mesh_splatting_tpu/ops/rasterize_pallas.py:238",
-        "launches": fwd_launches,
+        "launches": gs_fwd_launches,
         "launches_render": render_launches,
         "launches_train": fwd_launches,
-        "max_abs_err": full["max_abs_err_rgbT"],
+        "launches_gs_train": gs_fwd_launches,
+        "launches_gs_flat_train": flat_fwd_launches,
+        "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
         "queued_ms": full["queued_ms"],
         "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
         "library_ms": None,
+        **{f"gs_{k}": gs_fwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
     }, {
         "name": "composite_bwd",
         "route": "cuda",
         "source": "gaussian_mesh_splatting_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "gaussian_mesh_splatting_tpu/ops/rasterize_pallas.py:405",
-        "launches": bwd_launches,
+        "launches": gs_bwd_launches,
         "launches_render": render_bwd_launches,
         "launches_train": bwd_launches,
-        "max_abs_err": full_bwd["photometric"]["max_abs_err"],
+        "launches_gs_train": gs_bwd_launches,
+        "launches_gs_flat_train": flat_bwd_launches,
+        "max_abs_err": max(full_bwd["photometric"]["max_abs_err"],
+                           gs_bwd["photometric"]["max_abs_err"]),
         "ms": full_bwd["ms"],
         "queued_ms": full_bwd["queued_ms"],
         "plain_ms": full_bwd["plain_ms"],
         "bound_ms": full_bwd["bound_ms"],
         "bound_by": full_bwd["bound_by"],
         "library_ms": None,
+        **{f"gs_{k}": gs_bwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -1,6 +1,7 @@
 """Batch rendering CLI (port of `gaussian_mesh_splatting_tpu/apps/render.py`).
 
-Renders the train and test views of a trained model to PNG under
+Renders the train and test views of a trained model (`gs`, `gs_flat`,
+`gs_mesh`, or a `gs_flat` model as `--gs_type gs_points`) to PNG under
 {model}/{split}/ours_{iteration}/renders_{gs_type}/ and gt/. Runs on the
 CUDA device (preprocess, binning and the CUDA composite kernel) unless
 `--device cpu` is given, which takes the kernel's plain PyTorch version.
@@ -55,14 +56,17 @@ def render_sets(args) -> None:
         device=device,
     )
     iteration = args.iteration if args.iteration > 0 else latest_iteration(args.model_path)
-    # faces do not travel in the snapshot: rebuild them from the scene's mesh
-    consts = scene.init_model_state(model, sh_degree)["consts"]
+    # mesh faces do not travel in the snapshot: rebuild them from the scene's
+    # mesh; a point-cloud state has none
+    consts = scene.init_model_state(model, sh_degree)["consts"] if gs_type == "gs_mesh" else {}
     state = load_snapshot(
         gs_type, snapshot_dir(args.model_path, iteration), sh_degree, consts, device=device
     )
     bg = torch.ones(3, device=device) if cfg.get("white_background") else torch.zeros(3, device=device)
 
     with torch.no_grad():
+        # gs_points: the state's own pseudomesh (a triangle soup), and the
+        # Gaussians derived back from its triangles
         bag = model.to_bag(state)
         for split, cameras in [("train", scene.train_cameras), ("test", scene.test_cameras)]:
             if (split == "train" and args.skip_train) or (split == "test" and args.skip_test):

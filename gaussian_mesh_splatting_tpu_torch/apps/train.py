@@ -1,20 +1,26 @@
 """Training CLI (port of `gaussian_mesh_splatting_tpu/apps/train.py`, the
-single-device `gs_mesh` path).
+single-device paths: `gs_mesh`, and `gs` / `gs_flat` with densification).
 
     python -m gaussian_mesh_splatting_tpu_torch.apps.train \\
-        --gs_type gs_mesh -s <dataset> -m <output> [--eval] [--device cpu] ...
+        --gs_type gs|gs_flat|gs_mesh -s <dataset> -m <output> [--eval] [--device cpu] ...
 
-Flow: Scene (writes `input.ply` and `cameras.json`) -> initial state ->
-`cfg_args` -> one train step per camera, in an order reshuffled from
-`random.Random(seed)` whenever it runs out -> SH warm-up every 1000
-iterations, periodic eval, snapshots. Runs on the CUDA device (preprocess,
-binning and the two composite kernels) unless `--device cpu` is given, which
-takes the kernels' plain PyTorch versions.
+Flow: Scene (writes `input.ply` and `cameras.json`) -> initial state (for
+`gs` / `gs_flat` a buffer of `--capacity_mult` times the point count) or the
+state of `--start_checkpoint` -> `cfg_args` -> one train step per camera, in
+an order reshuffled from `random.Random(seed)` whenever it runs out (it
+starts anew on a resume) -> SH warm-up every 1000 iterations, density control
+(`gs` / `gs_flat`), periodic eval, snapshots, checkpoints (`chkpnt{N}.pt`).
+Runs on the CUDA device (preprocess, binning and the two composite kernels)
+unless `--device cpu` is given, which takes the kernels' plain PyTorch
+versions.
+
+`--seed` seeds the camera order, the random backgrounds and the generator of
+the split samples, a `torch.Generator` on the run's device: a CPU run and a
+CUDA run draw different samples from one seed.
 
 Flags whose paths are not ported raise NotImplementedError: `--port`,
-`--profile_steps`, `--checkpoint_iterations`, `--start_checkpoint`,
-`--detect_anomaly`, `--shard`/`--data_parallel` with more than one device,
-a gs_type other than `gs_mesh`, and a config with densification.
+`--profile_steps`, `--detect_anomaly`, `--shard`/`--data_parallel` with more
+than one device, and the gs_types `gs_multi_mesh` and `gs_flame`.
 """
 from __future__ import annotations
 
@@ -30,12 +36,18 @@ import torch
 
 @dataclasses.dataclass
 class TrainResult:
-    """What `main` returns: the final state, the loss of every step, and the
-    mean test PSNR of every eval ({iteration: psnr})."""
+    """What `main` returns: the final state, the loss of every step, the
+    mean test PSNR of every eval ({iteration: psnr}), and the counts of every
+    densify event ({"iteration", and the keys of `densify_and_prune`'s info})."""
 
     state: object
     losses: list[float]
     test_psnr: dict[int, float]
+    densify_events: list[dict]
+
+
+def checkpoint_path(model_path: str, iteration: int) -> str:
+    return os.path.join(model_path, f"chkpnt{iteration}.pt")
 
 
 def dump_debug_state(model_path: str, it: int, tstate, cam) -> str:
@@ -91,6 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto", choices=["auto", "cuda", "reference"],
                    help="auto: the CUDA kernels on the card, their plain versions on the "
                         "CPU; reference: the sequential torch oracle")
+    p.add_argument("--capacity_mult", type=float, default=4.0,
+                   help="densify buffer headroom over the initial point count")
     p.add_argument("--pair_capacity", type=int, default=None,
                    help="initial rasterizer pair-list size (default: exact, no overflow); "
                         "doubles whenever a step drops pairs")
@@ -100,12 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args, cfg, n_devices: int) -> None:
+def _refuse_unported(args, n_devices: int) -> None:
     unported = {
         "--port": args.port,
         "--profile_steps": args.profile_steps,
-        "--checkpoint_iterations": args.checkpoint_iterations,
-        "--start_checkpoint": args.start_checkpoint,
         "--detect_anomaly": args.detect_anomaly,
     }
     for flag, value in unported.items():
@@ -114,25 +126,25 @@ def _refuse_unported(args, cfg, n_devices: int) -> None:
     if (args.shard != "none" or args.data_parallel) and n_devices > 1:
         raise NotImplementedError("multi-device training (--shard, --data_parallel) "
                                   "is not ported yet")
-    if getattr(cfg, "densify", False):
-        raise NotImplementedError("densification is not ported yet")
 
 
 def main(argv=None) -> TrainResult:
     args = build_parser().parse_args(argv)
     from ..device import resolve_device
-    from ..io.checkpoint import snapshot_dir
+    from ..io.checkpoint import restore_checkpoint, save_checkpoint, snapshot_dir
     from ..io.config_io import save_cfg
     from ..io.snapshots import save_snapshot
     from ..models import get_model
     from ..scene import Scene
     from ..train import (
+        densify_and_prune,
         make_eval_render,
         make_train_state,
         make_train_step,
         one_up_sh_degree,
         optimization_config,
         psnr,
+        reset_opacity,
     )
     from ..utils.profiling import MetricsLogger
 
@@ -155,7 +167,7 @@ def main(argv=None) -> TrainResult:
         overrides["random_background"] = True
     cfg = optimization_config(args.gs_type, **overrides)
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    _refuse_unported(args, cfg, n_devices)
+    _refuse_unported(args, n_devices)
     if args.pair_capacity is not None and args.pair_capacity <= 0:
         raise ValueError("--pair_capacity must be positive")
 
@@ -165,8 +177,15 @@ def main(argv=None) -> TrainResult:
         resolution=args.resolution, num_splats=args.num_splats,
         seed=args.seed, device=device,
     )
-    tstate = make_train_state(scene.init_model_state(model, sh_degree=args.sh_degree), cfg,
-                              scene.cameras_extent)
+    densify = getattr(cfg, "densify", False)
+    n0 = len(scene.scene_info.point_cloud.points)
+    capacity = int(n0 * args.capacity_mult) if densify else None
+    mstate = scene.init_model_state(model, sh_degree=args.sh_degree, capacity=capacity)
+    tstate = make_train_state(mstate, cfg, scene.cameras_extent)
+    if args.start_checkpoint:
+        tstate = restore_checkpoint(args.start_checkpoint, tstate)
+        print(f"resumed from {args.start_checkpoint} at step {tstate.step} "
+              f"({int(tstate.alive.sum())} alive of {tstate.alive.shape[0]} rows)")
     save_cfg(args.model_path, {
         "gs_type": args.gs_type, "source_path": os.path.abspath(args.source_path),
         "model_path": args.model_path, "images": args.images,
@@ -192,6 +211,7 @@ def main(argv=None) -> TrainResult:
     bg_color = torch.full((3,), 1.0 if args.white_background else 0.0, device=device)
     rng = random.Random(args.seed)
     np_rng = np.random.default_rng(args.seed)
+    densify_rng = torch.Generator(device=device).manual_seed(args.seed)
     # every GT image on the device up front (800x800 float32 is 7.7 MB)
     cams = [(c, torch.as_tensor(g, device=device)) for c, g in scene.train_cameras]
     order: list[int] = []
@@ -201,10 +221,11 @@ def main(argv=None) -> TrainResult:
 
     losses: list[torch.Tensor] = []
     test_psnr: dict[int, float] = {}
+    densify_events: list[dict] = []
     t_start = t_boundary = time.time()
-    it_boundary = 0
+    it_boundary = start_iter = tstate.step
     ema_loss = None
-    for it in range(1, cfg.iterations + 1):
+    for it in range(start_iter + 1, cfg.iterations + 1):
         if args.save_xyz and (it % 5000 == 1 or it == cfg.iterations):
             with torch.no_grad():
                 xyz = model.to_bag(tstate.model_state()).xyz
@@ -227,6 +248,34 @@ def main(argv=None) -> TrainResult:
             print(f"[it {it}] rasterizer pair overflow ({metrics['overflow']} pairs dropped): "
                   f"growing pair_capacity to {pair_capacity}")
             step_fn = build_step(pair_capacity)
+
+        if densify and it < cfg.densify_until_iter:
+            if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
+                tstate, info = densify_and_prune(
+                    tstate,
+                    grad_threshold=cfg.densify_grad_threshold,
+                    min_opacity=cfg.min_opacity,
+                    extent=scene.cameras_extent,
+                    percent_dense=cfg.percent_dense,
+                    # screen/world-size pruning starts after the first opacity reset
+                    size_threshold=20.0 if it > cfg.opacity_reset_interval else 0.0,
+                    scaling_cols=2 if args.gs_type == "gs_flat" else 3,
+                    generator=densify_rng,
+                )
+                # the event's one host read of its counts
+                info = dict(zip(info, torch.stack(list(info.values())).tolist()))
+                densify_events.append({"iteration": it, **info})
+                if not args.quiet and info["overflow"] > 0:
+                    print(f"[it {it}] densify overflow: {info['overflow']} dropped")
+                if not args.quiet and info["n_pruned"] > 0.5 * max(info["n_alive"], 1):
+                    print(f"[it {it}] WARNING: densify pruned {info['n_pruned']} "
+                          f"(opacity {info['n_pruned_opacity']}, "
+                          f"screen {info['n_pruned_screen']}, "
+                          f"world {info['n_pruned_world']}) — {info['n_alive']} alive")
+            if it % cfg.opacity_reset_interval == 0 or (
+                args.white_background and it == cfg.densify_from_iter
+            ):
+                tstate = reset_opacity(tstate)
 
         if it % 100 == 0 or it == 1:
             loss = float(metrics["loss"])
@@ -266,6 +315,10 @@ def main(argv=None) -> TrainResult:
             save_snapshot(args.gs_type, model, tstate.model_state(), out_dir)
             print(f"[it {it}] saved snapshot to {out_dir}")
 
+        if it in args.checkpoint_iterations:
+            save_checkpoint(checkpoint_path(args.model_path, it), tstate)
+            print(f"[it {it}] checkpoint saved")
+
     if cfg.iterations not in args.save_iterations:
         save_snapshot(args.gs_type, model, tstate.model_state(),
                       snapshot_dir(args.model_path, cfg.iterations))
@@ -275,6 +328,7 @@ def main(argv=None) -> TrainResult:
         state=tstate,
         losses=torch.stack(losses).tolist() if losses else [],
         test_psnr=test_psnr,
+        densify_events=densify_events,
     )
 
 

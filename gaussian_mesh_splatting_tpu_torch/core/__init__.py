@@ -18,4 +18,11 @@ from .camera import (
     projection_matrix,
     world_to_view,
 )
-from .face_frames import FaceFrame, face_frames, face_scaling_rotation_quat
+from .face_frames import (
+    FaceFrame,
+    face_frames,
+    face_scaling_rotation_quat,
+    gaussians_to_pseudomesh,
+    soup_frames,
+    soup_scaling_rotation_quat,
+)

@@ -1,9 +1,12 @@
-"""Mesh-face local frames for `gs_mesh` (GaMeS parameterization).
+"""Mesh-face local frames (port of
+`gaussian_mesh_splatting_tpu/core/face_frames.py`), in two directions:
 
-Port of `face_frames` / `face_scaling_rotation_quat` from
-`gaussian_mesh_splatting_tpu/core/face_frames.py`: triangles -> per-face
-orthonormal frame (normal, centroid->v1, Gram-Schmidt of centroid->v2) and
-in-plane extents, from which Gaussian scale and rotation are derived.
+  * forward (`face_frames` for `gs_mesh`, centroid-based; `soup_frames` for
+    `gs_points` triangle soups, vertex-origin): triangles -> per-face
+    orthonormal frame and in-plane extents, from which Gaussian scale and
+    rotation are derived;
+  * inverse (`gaussians_to_pseudomesh`): flat Gaussians -> a triangle soup
+    (one triangle per Gaussian), the render-only `gs_points` parameterization.
 """
 from __future__ import annotations
 
@@ -11,11 +14,11 @@ from typing import NamedTuple
 
 import torch
 
-from .transforms import rotmat_to_quat
+from .transforms import quat_to_rotmat, rotmat_to_quat
 
 
 class FaceFrame(NamedTuple):
-    scales: torch.Tensor  # (F, 3) [eps, s1, s2] in-face extents
+    scales: torch.Tensor  # (F, 3) [eps, s1, s2] in-face extents; (F, 2) for soups
     rotation: torch.Tensor  # (F, 3, 3) rotation; columns = frame axes
 
 
@@ -65,9 +68,69 @@ def face_frames(triangles: torch.Tensor, eps: float = 1e-8) -> FaceFrame:
     return FaceFrame(scales=scales, rotation=rotation)
 
 
+def soup_frames(triangles: torch.Tensor, eps: float = 1e-8) -> FaceFrame:
+    """Vertex-origin frame of a `gs_points` triangle soup.
+
+    Edges from vertex 1: e2 = v2 - v1, e3 = v3 - v1. Frame: r1 = normal,
+    r2 = e2 direction, r3 = Gram-Schmidt of e3. Extents: s2 = |e2|,
+    s3 = <e3, r3> (full lengths, not halves: the inverse map's convention,
+    so that a round trip is exact).
+
+    Returns:
+      FaceFrame(scales (F, 2) = [s2, s3], rotation (F, 3, 3) with columns
+      (r1, r2, r3)); the model layer prepends the flat eps axis.
+    """
+    v1, v2, v3 = triangles[:, 0], triangles[:, 1], triangles[:, 2]
+    e2 = v2 - v1
+    e3 = v3 - v1
+    r1 = _normalize(torch.linalg.cross(e2, e3), eps)
+    s2 = _safe_norm(e2, eps)
+    r2 = e2 / s2
+    r3 = e3 - _dot(e3, r1) * r1 - _dot(e3, r2) * r2
+    r3 = _normalize(r3, eps)
+    s3 = _dot(e3, r3)
+    scales = torch.cat([s2, s3], dim=-1)
+    rotation = torch.stack([r1, r2, r3], dim=1).transpose(-2, -1)
+    return FaceFrame(scales=scales, rotation=rotation)
+
+
+def gaussians_to_pseudomesh(
+    xyz: torch.Tensor, scaling: torch.Tensor, rotation_q: torch.Tensor
+) -> torch.Tensor:
+    """Inverse parameterization: flat Gaussians -> triangle soup.
+
+    v1 = centre; v2 = centre + s_major * axis_major; v3 = centre + s_minor *
+    axis_minor, the larger in-plane axis first.
+
+    Args:
+      xyz: (N, 3) centres.
+      scaling: (N, 3) activated scales; the last two are the in-plane axes.
+      rotation_q: (N, 4) quaternions (w, x, y, z).
+    Returns:
+      (N, 3, 3) triangles.
+    """
+    axes = quat_to_rotmat(rotation_q).transpose(-2, -1)  # rows = the frame's axes
+    s2 = scaling[:, -2:-1]
+    s3 = scaling[:, -1:]
+    cand2 = xyz + s2 * axes[:, 1]
+    cand3 = xyz + s3 * axes[:, 2]
+    swap = s2 > s3  # (N, 1)
+    v2 = torch.where(swap, cand2, cand3)
+    v3 = torch.where(swap, cand3, cand2)
+    return torch.stack([xyz, v2, v3], dim=1)
+
+
 def face_scaling_rotation_quat(
     triangles: torch.Tensor, eps: float = 1e-8
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`face_frames` + quaternion conversion: ((F,3) scales, (F,4) quats)."""
     frame = face_frames(triangles, eps)
     return frame.scales, rotmat_to_quat(frame.rotation)
+
+
+def soup_scaling_rotation_quat(
+    triangles: torch.Tensor, eps: float = 1e-8
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`soup_frames` + quaternion conversion: ((F,2) |scales|, (F,4) quats)."""
+    frame = soup_frames(triangles, eps)
+    return torch.abs(frame.scales), rotmat_to_quat(frame.rotation)

@@ -32,11 +32,14 @@ def _tree_to_torch(tree, dev: torch.device):
 def state_from_numpy(
     gs_type: str, state: Mapping, *, device: str | torch.device | None = None
 ) -> dict:
-    """A JAX-package model state ({"params", "consts", "alive"}, arrays as
-    numpy) -> the port's state of torch tensors on `device`."""
+    """A JAX-package model state ({"params", "alive" and, for the mesh
+    models, "consts"}, arrays as numpy) -> the port's state of torch tensors
+    on `device`. Point-cloud states carry over as they are: padded capacity
+    buffers with their `alive` mask, two scaling columns for `gs_flat`."""
     get_model(gs_type)  # raises for a gs_type that is not ported
     dev = resolve_device(device)
-    out = {k: _tree_to_torch(state[k], dev) for k in ("params", "consts", "alive")}
+    out = {k: _tree_to_torch(state.get(k, {}) if k == "consts" else state[k], dev)
+           for k in ("params", "consts", "alive")}
     if gs_type == "gs_mesh":
         out["consts"]["faces"] = out["consts"]["faces"].long()
     return out

@@ -1,11 +1,17 @@
-"""Snapshot sidecar helpers (the snapshot half of
-`gaussian_mesh_splatting_tpu/io/checkpoint.py`; training checkpoints come
-with the training slice).
+"""Training checkpoints (full-state resume) and snapshot sidecar helpers
+(port of `gaussian_mesh_splatting_tpu/io/checkpoint.py`).
 
-A model snapshot is `point_cloud/iteration_{N}/point_cloud.ply` in the
-reference-compatible layout plus a `model_params.npz` sidecar for the params
-that do not fit the PLY schema (mesh alpha and vertices). Keys of the npz
-are /-joined paths into the parameter tree.
+  (a) A training checkpoint is the whole TrainState in one file, written by
+      `torch.save` as a plain dict of tensors and ints and read back with
+      `torch.load(weights_only=True)` (no pickled code): params, the Adam
+      moments and step of each group, the densification statistics, `alive`,
+      `consts`, `step`, `active_sh_degree`. The JAX package writes an orbax
+      directory; the two formats do not read each other.
+  (b) A model snapshot is `point_cloud/iteration_{N}/point_cloud.ply` in the
+      reference-compatible layout plus, for the mesh models, a
+      `model_params.npz` sidecar for the params that do not fit the PLY
+      schema (mesh alpha and vertices). Keys of the npz are /-joined paths
+      into the parameter tree. Either package reads the other's snapshots.
 """
 from __future__ import annotations
 
@@ -14,6 +20,58 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..train.state import DensifyStats, TrainState, optimizer_like
+
+_STATS = ("grad_accum", "denom", "max_radii")
+
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    """Write `state` to the file `path`."""
+    optimizer = state.optimizer
+    adam = {}
+    for group in optimizer.param_groups:
+        (p,) = group["params"]
+        # a group that has taken no step yet has no moments
+        adam[group["name"]] = {k: v.detach() for k, v in optimizer.state.get(p, {}).items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({
+        "step": int(state.step),
+        "active_sh_degree": int(state.active_sh_degree),
+        "params": {k: v.detach() for k, v in state.params.items()},
+        "adam": adam,
+        "stats": {k: getattr(state.stats, k) for k in _STATS},
+        "alive": state.alive,
+        "consts": dict(state.consts),
+    }, path)
+
+
+def restore_checkpoint(path: str, template: TrainState) -> TrainState:
+    """The TrainState saved at `path`, on the template's device. The
+    template (a fresh state of the same model and config) gives the device
+    and each Adam group's settings; the restored buffers have the
+    checkpoint's capacity, whatever the template's."""
+    dev = template.alive.device
+    ckpt = torch.load(path, map_location=dev, weights_only=True)
+    if set(ckpt["params"]) != set(template.params):
+        raise ValueError(f"{path} holds params {sorted(ckpt['params'])}, "
+                         f"the model has {sorted(template.params)}")
+    params = {k: ckpt["params"][k].requires_grad_(True) for k in template.params}
+    optimizer = optimizer_like(template.optimizer, params)
+    for name, moments in ckpt["adam"].items():
+        if moments:
+            # Adam keeps "step" on the host unless it is capturable
+            optimizer.state[params[name]] = {
+                k: v.cpu() if k == "step" else v for k, v in moments.items()}
+    return TrainState(
+        step=int(ckpt["step"]),
+        params=params,
+        optimizer=optimizer,
+        alive=ckpt["alive"],
+        consts=ckpt["consts"],
+        stats=DensifyStats(**{k: ckpt["stats"][k] for k in _STATS}),
+        active_sh_degree=int(ckpt["active_sh_degree"]),
+    )
 
 
 def _flatten_params(params: Any, prefix: str = "") -> dict[str, np.ndarray]:

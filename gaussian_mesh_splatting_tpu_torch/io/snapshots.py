@@ -1,9 +1,12 @@
-"""Model snapshots for `gs_mesh`: reference-compatible PLY + npz sidecar.
+"""Model snapshots: reference-compatible PLY, plus an npz sidecar for the
+mesh models.
 
 Port of `gaussian_mesh_splatting_tpu/io/snapshots.py`, in the same format, so
-a snapshot written by either package loads in the other. The PLY carries the
-derived Gaussian attributes (renderable by any 3DGS viewer); the sidecar
-carries the mesh parameterization (vertices, alpha, scale).
+a snapshot written by either package loads in the other. `gs` and `gs_flat`
+save the raw params of their alive rows and no sidecar. The other models'
+PLY carries the derived Gaussian attributes (renderable by any 3DGS viewer)
+and the sidecar their parameterization (`gs_mesh`: vertices, alpha, scale).
+`gs_points` loads a `gs_flat` PLY.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from .checkpoint import load_sidecar, save_sidecar, unflatten_sidecar
 from .ply import load_gaussians_ply, save_gaussians_ply
 
 SIDECAR_NAME = "model_params.npz"
-PORTED_GS_TYPES = ("gs_mesh",)
+POINT_GS_TYPES = ("gs", "gs_flat", "gs_points")  # the PLY holds the raw params
+PORTED_GS_TYPES = (*POINT_GS_TYPES, "gs_mesh")
 
 
 def _check_ported(gs_type: str) -> None:
@@ -27,7 +31,7 @@ def _check_ported(gs_type: str) -> None:
 
 
 def save_snapshot(gs_type: str, model, state: dict, dirpath: str) -> str:
-    """Write point_cloud.ply and the sidecar. Returns the ply path."""
+    """Write point_cloud.ply (and the sidecar). Returns the ply path."""
     _check_ported(gs_type)
     os.makedirs(dirpath, exist_ok=True)
     ply_path = os.path.join(dirpath, "point_cloud.ply")
@@ -35,6 +39,12 @@ def save_snapshot(gs_type: str, model, state: dict, dirpath: str) -> str:
 
     def np_(t):
         return t.detach().cpu().numpy()
+
+    if gs_type in ("gs", "gs_flat"):
+        alive = np_(state["alive"])
+        save_gaussians_ply(ply_path, *(np_(p[k])[alive] for k in (
+            "xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")))
+        return ply_path
 
     with torch.no_grad():
         bag = model.to_bag(state)
@@ -67,11 +77,17 @@ def load_snapshot(
     _check_ported(gs_type)
     dev = resolve_device(device)
     cols = load_gaussians_ply(os.path.join(dirpath, "point_cloud.ply"), max_sh_degree=sh_degree)
-    sidecar_path = os.path.join(dirpath, SIDECAR_NAME)
-    if not os.path.exists(sidecar_path):
-        raise FileNotFoundError(f"{gs_type} snapshot needs its sidecar {sidecar_path}")
-    params = {k: cols[k] for k in ("f_dc", "f_rest", "opacity")}
-    params.update(unflatten_sidecar(load_sidecar(sidecar_path)))
+    if gs_type in POINT_GS_TYPES:
+        params = dict(cols)
+        if gs_type != "gs":
+            # the flat models keep 2 scaling columns; the PLY stores the padded 3
+            params["scaling"] = np.ascontiguousarray(params["scaling"][:, -2:])
+    else:
+        sidecar_path = os.path.join(dirpath, SIDECAR_NAME)
+        if not os.path.exists(sidecar_path):
+            raise FileNotFoundError(f"{gs_type} snapshot needs its sidecar {sidecar_path}")
+        params = {k: cols[k] for k in ("f_dc", "f_rest", "opacity")}
+        params.update(unflatten_sidecar(load_sidecar(sidecar_path)))
     n = cols["xyz"].shape[0]
     return {
         "params": {k: torch.as_tensor(v, device=dev) for k, v in params.items()},

@@ -1,12 +1,18 @@
-"""Model registry: gs_type string -> parameterization module.
+"""Model registry: gs_type string -> parameterization module, each exposing
+`to_bag(state, ...) -> GaussianBag` and its initializer.
 
-Only `gs_mesh` is ported so far; the other gs_types of the JAX package
-(`gs`, `gs_flat`, `gs_multi_mesh`, `gs_points`, `gs_flame`) raise.
+Ported: `gs` (vanilla), `gs_flat`, `gs_mesh` and the render-only `gs_points`.
+The JAX package's `gs_multi_mesh` and `gs_flame` raise.
 """
-from . import mesh
+from . import flat, mesh, points, vanilla
 from .gaussian_bag import GaussianBag, features_to_shs, shs_to_features
 
-MODEL_REGISTRY = {"gs_mesh": mesh}
+MODEL_REGISTRY = {
+    "gs": vanilla,
+    "gs_flat": flat,
+    "gs_mesh": mesh,
+    "gs_points": points,  # render-only
+}
 
 
 def get_model(gs_type: str):

@@ -167,12 +167,17 @@ def preprocess(
     colors: torch.Tensor | None = None,
     sh_degree: int = 0,
     scale_modifier=1.0,
+    cov3d_precomp: torch.Tensor | None = None,
     antialiasing: bool = False,
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     radius_mode: str = "cuda",
 ) -> ProjectedGaussians:
     """Full screen-space preprocessing for a batch of Gaussians.
+
+    `cov3d_precomp` (N, 6) = the 3D covariance's unique entries (c00, c01,
+    c02, c11, c12, c22) takes the place of `scales` and `rotations` (which
+    may then be None; `scale_modifier` does not apply to it).
 
     `mean2d_offset` is an all-zeros (N, 2) tensor the caller threads in to
     obtain screen-space positional gradients: gradients w.r.t. it equal
@@ -204,29 +209,32 @@ def preprocess(
         py = py + mean2d_offset[:, 1]
 
     # 3D covariance (6 unique entries)
-    qr, qx, qy, qz = rotations.unbind(-1)
-    inv_qn = 1.0 / torch.sqrt(qr * qr + qx * qx + qy * qy + qz * qz)
-    qr, qx, qy, qz = qr * inv_qn, qx * inv_qn, qy * inv_qn, qz * inv_qn
-    r00 = 1 - 2 * (qy * qy + qz * qz)
-    r01 = 2 * (qx * qy - qr * qz)
-    r02 = 2 * (qx * qz + qr * qy)
-    r10 = 2 * (qx * qy + qr * qz)
-    r11 = 1 - 2 * (qx * qx + qz * qz)
-    r12 = 2 * (qy * qz - qr * qx)
-    r20 = 2 * (qx * qz - qr * qy)
-    r21 = 2 * (qy * qz + qr * qx)
-    r22 = 1 - 2 * (qx * qx + qy * qy)
-    s0, s1, s2 = (s * scale_modifier for s in scales.unbind(-1))
-    s0q, s1q, s2q = s0 * s0, s1 * s1, s2 * s2
+    if cov3d_precomp is not None:
+        cov6 = cov3d_precomp.unbind(-1)
+    else:
+        qr, qx, qy, qz = rotations.unbind(-1)
+        inv_qn = 1.0 / torch.sqrt(qr * qr + qx * qx + qy * qy + qz * qz)
+        qr, qx, qy, qz = qr * inv_qn, qx * inv_qn, qy * inv_qn, qz * inv_qn
+        r00 = 1 - 2 * (qy * qy + qz * qz)
+        r01 = 2 * (qx * qy - qr * qz)
+        r02 = 2 * (qx * qz + qr * qy)
+        r10 = 2 * (qx * qy + qr * qz)
+        r11 = 1 - 2 * (qx * qx + qz * qz)
+        r12 = 2 * (qy * qz - qr * qx)
+        r20 = 2 * (qx * qz - qr * qy)
+        r21 = 2 * (qy * qz + qr * qx)
+        r22 = 1 - 2 * (qx * qx + qy * qy)
+        s0, s1, s2 = (s * scale_modifier for s in scales.unbind(-1))
+        s0q, s1q, s2q = s0 * s0, s1 * s1, s2 * s2
 
-    def sig(ra, rb):
-        return ra[0] * rb[0] * s0q + ra[1] * rb[1] * s1q + ra[2] * rb[2] * s2q
+        def sig(ra, rb):
+            return ra[0] * rb[0] * s0q + ra[1] * rb[1] * s1q + ra[2] * rb[2] * s2q
 
-    R0 = (r00, r01, r02)
-    R1 = (r10, r11, r12)
-    R2 = (r20, r21, r22)
-    cov6 = (sig(R0, R0), sig(R0, R1), sig(R0, R2),
-            sig(R1, R1), sig(R1, R2), sig(R2, R2))
+        R0 = (r00, r01, r02)
+        R1 = (r10, r11, r12)
+        R2 = (r20, r21, r22)
+        cov6 = (sig(R0, R0), sig(R0, R1), sig(R0, R2),
+                sig(R1, R1), sig(R1, R2), sig(R2, R2))
 
     a, b, c, det_ratio = _ewa_cov2d_cols((tx_v, ty_v, depth), cov6, cam)
 

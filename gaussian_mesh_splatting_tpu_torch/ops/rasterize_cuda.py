@@ -476,6 +476,7 @@ def rasterize_cuda(
     colors: torch.Tensor | None = None,
     sh_degree: int = 0,
     scale_modifier: float = 1.0,
+    cov3d_precomp: torch.Tensor | None = None,
     antialiasing: bool = False,
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
@@ -488,8 +489,9 @@ def rasterize_cuda(
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
-        scale_modifier=scale_modifier, antialiasing=antialiasing,
-        mean2d_offset=mean2d_offset, alive=alive, radius_mode="tight",
+        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+        antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
+        radius_mode="tight",
     )
     h, w = cam.height, cam.width
     n_ty, n_tx = _tile_grid(h, w)

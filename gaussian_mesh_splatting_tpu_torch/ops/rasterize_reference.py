@@ -101,6 +101,7 @@ def rasterize_reference(
     colors: torch.Tensor | None = None,
     sh_degree: int = 0,
     scale_modifier: float = 1.0,
+    cov3d_precomp: torch.Tensor | None = None,
     antialiasing: bool = False,
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
@@ -114,8 +115,9 @@ def rasterize_reference(
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
-        scale_modifier=scale_modifier, antialiasing=antialiasing,
-        mean2d_offset=mean2d_offset, alive=alive, radius_mode="tight",
+        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+        antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
+        radius_mode="tight",
     )
     order = torch.argsort(torch.where(proj.valid, proj.depth, torch.inf), stable=True)
     image, depth, alpha = _composite_sequential(

@@ -2,8 +2,9 @@
 detect the dataset type from the files on disk and the gs_type, run the
 matching reader, build the camera lists, and build the initial model state.
 With a `model_path` it also writes the model directory's `input.ply` (the
-initial point cloud) and `cameras.json`. Only the Blender and Blender_Mesh
-formats are ported so far."""
+initial point cloud) and `cameras.json`. Ported: the Blender format (a plain
+point cloud, for `gs`, `gs_flat` and `gs_points`) and Blender_Mesh (`gs_mesh`);
+COLMAP and FLAME scenes raise."""
 from __future__ import annotations
 
 import json
@@ -74,18 +75,19 @@ class Scene:
         self.train_cameras = camera_list(info.train_cameras, resolution, device=self.device)
         self.test_cameras = camera_list(info.test_cameras, resolution, device=self.device)
 
-    def init_model_state(self, model, sh_degree: int = 3) -> dict:
-        """The initial param state for this scene's gs_type."""
+    def init_model_state(self, model, sh_degree: int = 3, capacity: int | None = None) -> dict:
+        """The initial param state for this scene's gs_type. `capacity` pads
+        a point-cloud model's buffers for densification; the mesh model has
+        one Gaussian row per splat and ignores it."""
         pcd = self.scene_info.point_cloud
-        if not isinstance(pcd, MeshPointCloud):
-            raise NotImplementedError(
-                f"initial state for gs_type {self.gs_type!r} is not ported yet"
-            )
 
         def t(x):
             return torch.as_tensor(x, device=self.device)
 
-        return model.init_from_mesh(
-            t(pcd.vertices), t(pcd.faces), t(pcd.alpha), t(pcd.colors),
-            sh_degree=sh_degree,
-        )
+        if isinstance(pcd, MeshPointCloud):
+            return model.init_from_mesh(
+                t(pcd.vertices), t(pcd.faces), t(pcd.alpha), t(pcd.colors),
+                sh_degree=sh_degree,
+            )
+        return model.init_from_points(
+            t(pcd.points), t(pcd.colors), sh_degree=sh_degree, capacity=capacity)

@@ -126,6 +126,16 @@ def make_optimizer(
     return torch.optim.Adam(groups, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
+def optimizer_like(optimizer: torch.optim.Adam, params: dict[str, torch.Tensor]) -> torch.optim.Adam:
+    """A fresh Adam (no moments) over `params`, new leaf tensors keyed like
+    the old optimizer's groups, with each group's settings (lr, schedule,
+    betas, eps) as they stand in `optimizer`: what replaces an optimizer when
+    the params change shape (`grow_capacity`, a restored checkpoint)."""
+    groups = [{**{k: v for k, v in group.items() if k != "params"},
+               "params": [params[group["name"]]]} for group in optimizer.param_groups]
+    return torch.optim.Adam(groups, betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
 def apply_lr_schedules(optimizer: torch.optim.Optimizer, step: int) -> None:
     """Set the lr of every scheduled group for update number `step`
     (0-based), as optax evaluates a schedule at its update count."""
@@ -141,7 +151,10 @@ def make_train_state(
     spatial_lr_scale: float = 1.0,
 ) -> TrainState:
     """A fresh TrainState. The params become leaf tensors that require
-    grad (detached copies of the model state's)."""
+    grad (detached copies of the model state's). Their rows may be a capacity
+    buffer (`alive` marks the live ones): densification statistics and Adam
+    moments cover every row. `spatial_lr_scale` is the scene extent
+    (`Scene.cameras_extent`), which scales the `xyz` schedule."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in model_state["params"].items()}
     alive = model_state["alive"]
     return TrainState(

@@ -1,8 +1,11 @@
 """The port's training app end to end on the CPU: `apps.train.main` on a tiny
 seeded Blender_Mesh dataset writes the model directory (cfg_args,
 cameras.json, input.ply, metrics, a snapshot) with a finite loss, and the
-port's render app reads the snapshot back. Flags of paths that are not
-ported raise NotImplementedError."""
+port's render app reads the snapshot back; on a Blender dataset with a small
+point cloud it trains `gs` and `gs_flat` with densify events and an opacity
+reset, writes a checkpoint and resumes from it, and the render app renders
+the snapshot (a `gs_flat` one also as `gs_points`). Flags of paths that are
+not ported raise NotImplementedError."""
 import json
 import os
 
@@ -15,6 +18,7 @@ from gaussian_mesh_splatting_tpu_torch import bench
 from gaussian_mesh_splatting_tpu_torch.apps import render as t_render_app
 from gaussian_mesh_splatting_tpu_torch.apps import train as t_train_app
 from gaussian_mesh_splatting_tpu_torch.io.obj import save_obj
+from gaussian_mesh_splatting_tpu_torch.io.ply import store_point_cloud
 
 torch.set_num_threads(2)
 ITERS = 10
@@ -55,6 +59,19 @@ def dataset(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def points_dataset(tmp_path_factory):
+    """A Blender dataset with its own `points3d.ply`: 200 seeded points (with
+    none the reader would make 100,000)."""
+    root = str(tmp_path_factory.mktemp("points_scene"))
+    _write_dataset(root)
+    os.remove(os.path.join(root, "mesh.obj"))
+    rng = np.random.default_rng(1)
+    store_point_cloud(os.path.join(root, "points3d.ply"), rng.random((200, 3)) * 1.6 - 0.8,
+                      rng.random((200, 3)) * 255)
+    return root
+
+
 def _argv(dataset, model, *extra, device="cpu"):
     return ["--gs_type", "gs_mesh", "-s", dataset, "-m", model, "--eval",
             "--num_splats", "3", "--sh_degree", "1", "--white_background",
@@ -88,11 +105,74 @@ def test_train_app_pair_capacity_grows_on_overflow(dataset, tmp_path, capsys):
     assert "growing pair_capacity to 8" in capsys.readouterr().out
 
 
+def _points_argv(gs_type, dataset, model, iterations, *extra):
+    """A run whose schedule is brought forward through the CLI's own flags:
+    events at 4, 6, 8, ..., the size threshold on after the reset at 6."""
+    return ["--gs_type", gs_type, "-s", dataset, "-m", model, "--eval", "--sh_degree", "1",
+            "--white_background", "--iterations", str(iterations),
+            "--densify_from_iter", "3", "--densification_interval", "2",
+            "--opacity_reset_interval", "6", "--densify_grad_threshold", "1e-7",
+            "--capacity_mult", "3", "--test_iterations", "1", str(iterations),
+            "--save_iterations", str(iterations), "--quiet", "--device", "cpu", *extra]
+
+
+@pytest.mark.parametrize("gs_type", ["gs", "gs_flat"])
+def test_train_app_densifies_checkpoints_resumes_and_renders(gs_type, points_dataset, tmp_path,
+                                                             capsys):
+    model = str(tmp_path / "model")
+    res = t_train_app.main(_points_argv(gs_type, points_dataset, model, 10,
+                                        "--checkpoint_iterations", "7"))
+    assert len(res.losses) == 10 and np.isfinite(res.losses).all()
+    events = res.densify_events
+    assert [e["iteration"] for e in events] == [4, 6, 8, 10]
+    assert events[0]["n_clone"] + events[0]["n_split_rows"] > 0
+    assert all(e["n_alive"] <= 600 for e in events) and events[-1]["n_alive"] != 200
+    assert sum(e["n_pruned"] for e in events) > 0
+    # the size threshold is off up to the opacity reset interval, on after it
+    assert all(e["n_pruned_screen"] == e["n_pruned_world"] == 0 for e in events[:2])
+    state = res.state
+    assert state.alive.shape == (600,) and int(state.alive.sum()) == events[-1]["n_alive"]
+    assert state.params["scaling"].shape == (600, 3 if gs_type == "gs" else 2)
+    assert all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    # the opacity reset at iteration 6 (the white-background one at 3 too)
+    assert float(torch.sigmoid(state.params["opacity"].detach()[state.alive]).max()) < 0.5
+    snap = os.path.join(model, "point_cloud", "iteration_10")
+    assert os.listdir(snap) == ["point_cloud.ply"]  # no sidecar
+    assert os.path.exists(os.path.join(model, "chkpnt7.pt"))
+
+    # resume: begins at the checkpoint's step, with its rows, whatever
+    # --capacity_mult says now
+    resumed = t_train_app.main(_points_argv(
+        gs_type, points_dataset, str(tmp_path / "resumed"), 10, "--capacity_mult", "2",
+        "--start_checkpoint", os.path.join(model, "chkpnt7.pt")))
+    assert len(resumed.losses) == 3 and resumed.state.step == 10
+    assert [e["iteration"] for e in resumed.densify_events] == [8, 10]
+    assert resumed.state.alive.shape == (600,)
+    assert (f"at step 7 ({events[1]['n_alive']} alive of 600 rows)"
+            in capsys.readouterr().out)  # the alive count the event at 6 left
+
+    t_render_app.main(["-m", model, "--device", "cpu"])
+    png = os.path.join(model, "test", "ours_10", f"renders_{gs_type}", "00001.png")
+    assert np.asarray(Image.open(png)).shape == (32, 32, 3)
+    if gs_type == "gs_flat":
+        t_render_app.main(["-m", model, "--gs_type", "gs_points", "--device", "cpu"])
+        a = np.asarray(Image.open(png), np.int32)
+        b = np.asarray(Image.open(png.replace("renders_gs_flat", "renders_gs_points")), np.int32)
+        assert np.abs(a - b).max() <= 2  # the soup round trip, within 2/255
+
+
+def test_train_app_capacity_mult_sizes_the_buffer(points_dataset, tmp_path):
+    res = t_train_app.main(_points_argv("gs", points_dataset, str(tmp_path / "m"), 2,
+                                        "--capacity_mult", "1.5"))
+    assert res.state.alive.shape == (300,) and int(res.state.alive.sum()) == 200
+    assert res.densify_events == []
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--port", "6009"], "--port"),
     (["--profile_steps", "1:2"], "--profile_steps"),
-    (["--checkpoint_iterations", "5"], "--checkpoint_iterations"),
-    (["--start_checkpoint", "chkpnt5"], "--start_checkpoint"),
+    (["--gs_type", "gs_multi_mesh"], "'gs_multi_mesh' is not ported yet"),
+    (["--gs_type", "gs_flame"], "'gs_flame' is not ported yet"),
     (["--detect_anomaly"], "--detect_anomaly"),
 ])
 def test_unported_flags_raise(dataset, tmp_path, extra, match):
@@ -102,8 +182,8 @@ def test_unported_flags_raise(dataset, tmp_path, extra, match):
 
 def test_unported_gs_type_raises(dataset, tmp_path):
     argv = _argv(dataset, str(tmp_path / "m"))
-    argv[1] = "gs"
-    with pytest.raises(NotImplementedError, match="'gs' is not ported yet"):
+    argv[1] = "gs_multi_mesh"
+    with pytest.raises(NotImplementedError, match="'gs_multi_mesh' is not ported yet"):
         t_train_app.main(argv)
 
 
