@@ -11,7 +11,9 @@ Phases (any failure exits nonzero; nothing is caught):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (the 5120-face, 51,200-Gaussian `gs_mesh` scene at
      800x800, SH degree 3; the first step of the `gs` path: 100,000 isotropic
-     Gaussians of opacity 0.1 alive in a 400,000-row buffer), on a
+     Gaussians of opacity 0.1 alive in a 400,000-row buffer; the first step
+     of the `gs_flame` path: 980,000 Gaussians on a 9,800-face head, B1
+     bit-equal there too), on a
      non-aligned 803x611 view, on a dense scene that drives pixels to
      termination and on an empty (all culled) one:
      the forward composite (B1) on its outputs, the backward composite (B2)
@@ -26,11 +28,25 @@ Phases (any failure exits nonzero; nothing is caught):
      teacher, a `gs_mesh` model directory of the teacher, and
      `apps.render.main(["-m", ...])` on the card; check the PNGs and that B1
      launched once per view;
-  4. drive the training path through the user's entry point:
+  4. drive the training paths through the user's entry point:
      `apps.train.main([...])` trains a fresh `gs_mesh` model on that dataset
      for TRAIN_ITERS steps; the loss must fall, the test PSNR rise, B2
      launch once per step and B1 once per step and eval view; the snapshot
-     renders through `apps.render`;
+     renders through `apps.render`. Then `gs_multi_mesh` on a COLMAP dataset
+     written with the port's `colmap_loader` writers (9 PINHOLE 800x800 views
+     on the same ring, llffhold giving 7 train and 2 test views; two copies of
+     the mesh, scaled and moved apart, in `sparse/0`, both in every view,
+     102,400 Gaussians; a points3D.bin; RGB GT from a seeded gs_multi_mesh
+     teacher on black) for MM_ITERS steps with a checkpoint, checked as above
+     and for every mesh's alpha moving, a short resume from the checkpoint
+     and `apps.render` of the snapshot; then `gs_flame` from a FLAME-format
+     pickle (FLAME's joints, parents and bases on a closed, head-sized UV
+     sphere of 9,800 faces) on a Blender dataset of the scene's cameras
+     with GT from a seeded teacher with an expression and the jaw open, at
+     the reader's 100 splats per face (980,000 Gaussians), FLAME_ITERS steps,
+     checked as above and for a finite, nonzero gradient of every FLAME
+     param at the last step; and `apps.render_flame --animated --dump_obj`
+     (FLAME_FRAMES PNGs and OBJs, one B1 launch a frame);
   5. drive the `gs` training path (vanilla 3DGS from a point cloud, with
      density control) through the user's entry points: the same cameras and
      GT images in a dataset of its own with no `points3d.ply`, so that the
@@ -46,10 +62,12 @@ Phases (any failure exits nonzero; nothing is caught):
      and `apps.render` renders the `gs` snapshot; then a short `gs_flat`
      run on the same dataset (FLAT_ITERS steps, one opacity reset, one
      event), whose snapshot `apps.render` renders as `gs_flat` and, through
-     its triangle soup, as `gs_points`: the two must agree;
+     its triangle soup, as `gs_points`: the two must agree; and a short `gs`
+     run from the COLMAP dataset's points (the plain Colmap reader);
   6. time the render path per view, the training paths' own step per stage
      (CUDA events at the stage boundaries it marks; the `gs` path's at its
-     last state and at a fresh first state, 100,000 alive), one densify
+     last state and at a fresh first state, 100,000 alive; the
+     `gs_multi_mesh` and `gs_flame` paths' at their last states), one densify
      event, the KNN scale init at 100,000 points, and the package's
      fwd+bwd bench (which refuses zero gradients); print how the pairs and
      the walked steps spread over the tiles, and each kernel's time on its
@@ -57,9 +75,10 @@ Phases (any failure exits nonzero; nothing is caught):
      by launch and with the launches queued back to back (`cuda_ms_queued`:
      the device time without the host's share of a single launch);
   7. print the kernels line (with each kernel's launches on the render path
-     and on each training path, its times and bounds at the `gs_mesh` and at
-     the `gs` inputs, each bound from the operations that this run's data
-     needs), the card's name and power limit, and last the device line.
+     and on each training path and `apps.render_flame`, its times and
+     bounds at the `gs_mesh`, the `gs` and the `gs_flame` inputs, each bound
+     from the operations that this run's data needs), the card's name and
+     power limit, and last the device line.
 Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 """
 from __future__ import annotations
@@ -116,6 +135,27 @@ GS_CHECKPOINT, GS_RESUME_ITERS = 400, 420
 FLAT_ITERS = 220
 FLAT_TEST_ITERS = (1, 220)
 SOUP_TOL = 2  # gs_points against gs_flat PNGs, in 1/255 (the round trip is float32)
+# the COLMAP dataset: 9 cameras on the Blender scene's ring (llffhold 8: 7 train
+# and 2 test views), two meshes of 5120 faces in sparse/0 (2 x 51,200
+# Gaussians for gs_multi_mesh), a points3D.bin of COLMAP_POINTS points
+N_COLMAP = 9
+N_COLMAP_TEST = 2
+COLMAP_POINTS = 20_000
+MM_ITERS = 100
+MM_TEST_ITERS = (1, 100)
+MM_CHECKPOINT, MM_RESUME_ITERS = 60, 70
+COLMAP_GS_ITERS = 50
+COLMAP_GS_TEST_ITERS = (1, 50)
+# gs_flame: a FLAME-format pickle of a head-sized closed mesh (a UV sphere of
+# 49 rings of 100 vertices and two poles: 4,902 vertices, 9,800 faces, about
+# FLAME's 5,023 and 9,976), trained at the reader's 100 splats per face
+FLAME_RINGS, FLAME_SEGMENTS, FLAME_RADIUS = 49, 100, 0.08
+FLAME_SPLATS = 100
+FLAME_ITERS = 100
+FLAME_TEST_ITERS = (1, 100)
+FLAME_FRAMES = 3
+FLAME_PARAMS = ("flame_shape", "flame_exp", "flame_pose", "flame_neck_pose", "flame_trans",
+                "vertices_enlargement")
 
 
 def log(msg: str) -> None:
@@ -170,21 +210,140 @@ def write_dataset(root: str) -> None:
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for i in range(n_cams):
-            angle = 2 * np.pi * (i + off) / n_cams
-            elev = 0.9 * np.sin(2.1 * i + off)
-            c = np.array([3.2 * np.sin(angle) * np.cos(elev), 3.2 * np.sin(elev) + 0.2,
-                          3.2 * np.cos(angle) * np.cos(elev)])
-            fwd = -c / np.linalg.norm(c)
-            right = np.cross([0.0, 1.0, 0.0], fwd)
-            right /= np.linalg.norm(right)
+            c, rot = ring_camera(i, n_cams, off)
             c2w = np.eye(4)
-            c2w[:3, :3] = np.stack([right, np.cross(fwd, right), -fwd], axis=1)
+            c2w[:3, :3] = rot
             c2w[:3, 3] = c
             Image.fromarray(np.zeros((SIZE, SIZE, 4), np.uint8), "RGBA").save(
                 os.path.join(root, split, f"r_{i}.png"))
             frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": FOVX, "frames": frames}, f)
+
+
+def ring_camera(i: int, n_cams: int, off: float = 0.0) -> tuple[np.ndarray, np.ndarray]:
+    """Camera `i` of the scene's ring: its centre and its camera-to-world
+    rotation in Blender's axes (x right, y up, z backward)."""
+    angle = 2 * np.pi * (i + off) / n_cams
+    elev = 0.9 * np.sin(2.1 * i + off)
+    c = np.array([3.2 * np.sin(angle) * np.cos(elev), 3.2 * np.sin(elev) + 0.2,
+                  3.2 * np.cos(angle) * np.cos(elev)])
+    fwd = -c / np.linalg.norm(c)
+    right = np.cross([0.0, 1.0, 0.0], fwd)
+    right /= np.linalg.norm(right)
+    return c, np.stack([right, np.cross(fwd, right), -fwd], axis=1)
+
+
+def colmap_meshes() -> list[tuple[np.ndarray, np.ndarray]]:
+    """The COLMAP scene's two meshes: the lumpy icosphere, scaled and moved
+    to either side of the origin."""
+    verts, faces = icosphere_mesh()
+    return [(verts * 0.55 + np.array([-0.45, -0.15, 0.0], np.float32), faces),
+            (verts * 0.4 + np.array([0.55, 0.35, 0.1], np.float32), faces)]
+
+
+def write_colmap_dataset(root: str, size: int = SIZE) -> None:
+    """COLMAP dataset with the port's own writers: one PINHOLE camera model,
+    N_COLMAP images on the scene's ring (black placeholder RGB PNGs), the two
+    meshes in sparse/0 and a points3D.bin of COLMAP_POINTS points drawn on
+    their faces. Fails unless every mesh is in every view."""
+    from PIL import Image
+
+    from gaussian_mesh_splatting_tpu_torch.core.camera import fov2focal
+    from gaussian_mesh_splatting_tpu_torch.io.obj import save_obj
+    from gaussian_mesh_splatting_tpu_torch.scene import colmap_loader as colmap
+
+    sparse, images = os.path.join(root, "sparse", "0"), os.path.join(root, "images")
+    os.makedirs(sparse)
+    os.makedirs(images)
+    f = fov2focal(FOVX, size)
+    colmap.write_cameras_binary(os.path.join(sparse, "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", size, size, np.array([f, f, size / 2, size / 2]))})
+    meshes = colmap_meshes()
+    ims = {}
+    for i in range(N_COLMAP):
+        c, c2w = ring_camera(i, N_COLMAP)
+        r_w2c = (c2w * np.array([1.0, -1.0, -1.0])).T  # Blender -> COLMAP axes
+        t = -r_w2c @ c
+        for k, (verts, _) in enumerate(meshes):
+            cam = verts @ r_w2c.T + t
+            uv = f * cam[:, :2] / cam[:, 2:] + size / 2
+            inside = (cam[:, 2] > 0) & (uv >= 0).all(1) & (uv < size).all(1)
+            if inside.mean() < 0.99:
+                raise SystemExit(f"mesh {k} is not in COLMAP view {i}")
+        ims[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat2qvec(r_w2c), t, 1, f"c_{i:02d}.png")
+        Image.fromarray(np.zeros((size, size, 3), np.uint8), "RGB").save(
+            os.path.join(images, f"c_{i:02d}.png"))
+    colmap.write_images_binary(os.path.join(sparse, "images.bin"), ims)
+    rng = np.random.default_rng(7)
+    xyz = []
+    for name, (verts, faces) in zip(("mesh_a", "mesh_b"), meshes):
+        save_obj(os.path.join(sparse, f"{name}.obj"), verts, faces)
+        w = rng.dirichlet(np.ones(3), COLMAP_POINTS // 2)
+        tri = verts[faces[rng.integers(0, len(faces), COLMAP_POINTS // 2)]]
+        xyz.append(np.einsum("na,nad->nd", w, tri))
+    colmap.write_points3D_binary(os.path.join(sparse, "points3D.bin"), np.concatenate(xyz),
+                                 rng.integers(0, 256, (COLMAP_POINTS, 3)).astype(np.uint8))
+
+
+def smooth_fields(rng, verts: np.ndarray, n: int, amp: float) -> np.ndarray:
+    """n smooth displacement fields over the vertices, (V, 3, n): each a
+    sine of the position along a random direction, along another."""
+    scale = np.abs(verts).max()
+    freq = rng.normal(0.0, 2.0, (n, 3)) / scale
+    phase = rng.uniform(0, 2 * np.pi, n)
+    along = rng.normal(size=(n, 3))
+    along /= np.linalg.norm(along, axis=1, keepdims=True)
+    return amp * np.sin(verts @ freq.T + phase)[:, None, :] * along.T[None]
+
+
+def write_flame_pickle(path: str, seed: int = 0) -> None:
+    """A FLAME model pickle in the real file's format (the keys and layout
+    that `load_flame_pickle` reads, float64 arrays, faces as uint32, the
+    root's parent as 2**32 - 1) with FLAME's structure: 5 joints (global,
+    neck, jaw, eyes) with parents (-1, 0, 1, 1, 1), 300 shape and 100
+    expression directions, 36 pose-corrective directions. The template is a
+    closed, head-sized ellipsoidal UV sphere (FLAME_RINGS x FLAME_SEGMENTS
+    + 2 vertices) in FLAME's axes (y up, z forward); the bases are smooth
+    fields; the joints and skinning weights follow the head's regions."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    theta = np.pi * np.arange(1, FLAME_RINGS + 1) / (FLAME_RINGS + 1)
+    phi = 2 * np.pi * np.arange(FLAME_SEGMENTS) / FLAME_SEGMENTS
+    ring = np.stack([np.sin(theta)[:, None] * np.cos(phi), np.cos(theta)[:, None]
+                     * np.ones_like(phi), np.sin(theta)[:, None] * np.sin(phi)], axis=-1)
+    unit = np.concatenate([[[0.0, 1.0, 0.0]], ring.reshape(-1, 3), [[0.0, -1.0, 0.0]]])
+    verts = unit * FLAME_RADIUS * np.array([0.85, 1.1, 0.95])
+    n, last = FLAME_SEGMENTS, len(verts) - 1
+    j = np.arange(n)
+    faces = [np.stack([np.zeros(n, int), 1 + (j + 1) % n, 1 + j], 1)]
+    for i in range(FLAME_RINGS - 1):
+        a, b = 1 + i * n + j, 1 + i * n + (j + 1) % n
+        faces += [np.stack([a, b, a + n], 1), np.stack([b, b + n, a + n], 1)]
+    base = 1 + (FLAME_RINGS - 1) * n
+    faces.append(np.stack([np.full(n, last), base + j, base + (j + 1) % n], 1))
+    faces = np.concatenate(faces)
+    r = FLAME_RADIUS
+    centres = np.array([[0, 0, 0], [0, -0.8 * r, -0.1 * r], [0, -0.45 * r, 0.55 * r],
+                        [-0.35 * r, 0.25 * r, 0.85 * r], [0.35 * r, 0.25 * r, 0.85 * r]])
+    near = np.exp(-((verts[:, None] - centres[None]) ** 2).sum(-1)
+                  / (2 * (np.array([10.0, 0.4, 0.35, 0.15, 0.15]) * r) ** 2))
+    j_regressor = near / near.sum(0)  # each joint: a weighted mean of its region
+    weights = near * np.array([1.0, 0.5, 2.0, 1.5, 1.5])
+    weights /= weights.sum(1, keepdims=True)
+    data = {
+        "kintree_table": np.array([[2**32 - 1, 0, 1, 1, 1], [0, 1, 2, 3, 4]], np.uint32),
+        "v_template": verts,
+        "shapedirs": np.concatenate([smooth_fields(rng, verts, 300, 2e-3),
+                                     smooth_fields(rng, verts, 100, 3e-3)], axis=2),
+        "posedirs": smooth_fields(rng, verts, 36, 1e-3),  # the file's (V, 3, P)
+        "J_regressor": j_regressor.T,
+        "weights": weights,
+        "f": faces.astype(np.uint32),
+    }
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh)
 
 
 def randomize_state(state: dict, seed: int) -> dict:
@@ -425,6 +584,8 @@ def compare_composite(label: str, args, layout, time_it: bool, plain_reps=(10, 1
     log(f"  B1 {label}: {json.dumps(res)}")
     if not ok:
         raise SystemExit(f"B1 disagrees with its plain version on {label}")
+    if time_it:
+        res["op_counts"] = ops
     return res
 
 
@@ -449,24 +610,27 @@ def dense_scene(n: int, seed: int, device):
     )
 
 
-def render_gt_images(scene, bag, data_dir: str) -> None:
+def render_gt_images(scene, bag, white: bool = True) -> None:
     """Overwrite the dataset's placeholder PNGs with the port's renders of
-    the teacher `bag` (white background), as tools_verify_scale.py does."""
+    the teacher `bag`, as tools_verify_scale.py does: opaque RGBA on white
+    for a Blender dataset, RGB (a COLMAP GT is not composited) on black."""
     import torch
     from PIL import Image
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 
+    info = scene.scene_info
     with torch.no_grad():
-        for split, cams in [("train", scene.train_cameras), ("test", scene.test_cameras)]:
-            for i, (cam, _) in enumerate(cams):
-                out = rasterize_cuda(bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam,
-                                     bg=torch.ones(3, device=bag.xyz.device), shs=bag.shs,
-                                     sh_degree=SH_DEGREE, alive=bag.alive)
-                img = torch.clamp(out.image, 0, 1).cpu().numpy()
-                rgba = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
-                Image.fromarray((rgba * 255).astype(np.uint8), "RGBA").save(
-                    os.path.join(data_dir, split, f"r_{i}.png"))
+        for ci, (cam, _) in zip(info.train_cameras + info.test_cameras,
+                                scene.train_cameras + scene.test_cameras):
+            out = rasterize_cuda(bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam,
+                                 bg=torch.full((3,), float(white), device=bag.xyz.device),
+                                 shs=bag.shs, sh_degree=SH_DEGREE, alive=bag.alive)
+            img = torch.clamp(out.image, 0, 1).cpu().numpy()
+            if white:
+                img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+            Image.fromarray((img * 255).astype(np.uint8), "RGBA" if white else "RGB").save(
+                ci.image_path)
 
 
 def photometric_cotangent(planes, teacher, bg):
@@ -485,11 +649,13 @@ def photometric_cotangent(planes, teacher, bg):
 
 
 def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
-                          plain_reps=(3, 1)) -> dict:
+                          plain_reps=(3, 1), ops: dict | None = None) -> dict:
     """B2 vs its plain version on the same inputs and cotangents, on the
     card: a seeded normal cotangent of all five planes, and the photometric
     loss's cotangent against `teacher` (white background). `plain_reps`: the
-    (reps, warm-up calls) of the plain version's timing."""
+    (reps, warm-up calls) of the plain version's timing; `ops`: the
+    operation counts of `compare_composite` on the same inputs, where it has
+    made them (the replay is long on a large case)."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -526,7 +692,8 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
         # the (N, 10) gradients written once; operations: the (pixel, pair)
         # evaluations up to each pixel's nc, by how far each gets
         n_pairs, n_tiles, n = int(args[5].shape[0]), int(args[6].shape[0]), int(args[0].shape[0])
-        ops, _ = composite_op_counts(args, nc)
+        if ops is None:
+            ops, _ = composite_op_counts(args, nc)
         res["walk"] = walk_shape(args, nc)
         bytes_moved = 4 * n_pairs + 8 * n_tiles + 40 * n + 28 * h * w + 40 * n
         t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
@@ -586,13 +753,14 @@ def oracle_gradients(cam) -> float:
     return worst
 
 
-def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12) -> dict:
+def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12, model=None) -> dict:
     """Device times (ms, median of `reps`) of a training path's own step
     (`train.loop.make_train_step`, as `apps.train` builds it) at `state`:
     the whole step and each stage, from CUDA events that the step's `mark`
     hook records at its stage boundaries. Also, at the same state, B2 alone
     and the loss's forward + backward alone. The steps it takes keep
-    training the state."""
+    training the state. `model`: the gs_type's model where it is an
+    instance (`gs_flame`), else the registry's."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.models import get_model
@@ -600,7 +768,7 @@ def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12) -> dict:
     from gaussian_mesh_splatting_tpu_torch.train import make_train_step, optimization_config
     from gaussian_mesh_splatting_tpu_torch.train.loss import photometric_loss
 
-    model = get_model(gs_type)
+    model = model if model is not None else get_model(gs_type)
     stages = ("to_bag", "render", "loss", "backward", "adam", "stats")
     events = {}
 
@@ -639,7 +807,10 @@ def build_scene(dev):
     cameras and GT images in a directory of its own with no `points3d.ply`
     (the Blender_Mesh reader leaves the mesh's points under that name), so
     that the Blender reader makes its 100,000 seeded points, and that path's
-    first-step Gaussians in their 400,000-row buffer."""
+    first-step Gaussians in their 400,000-row buffer; the COLMAP dataset with
+    its two meshes and GT from a gs_multi_mesh teacher; the FLAME pickle, its
+    head's Blender dataset on the same cameras with GT from a gs_flame
+    teacher, and that path's first-step Gaussians."""
     import types
 
     import torch
@@ -648,7 +819,7 @@ def build_scene(dev):
     from gaussian_mesh_splatting_tpu_torch.io.config_io import save_cfg
     from gaussian_mesh_splatting_tpu_torch.io.snapshots import save_snapshot
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
-    from gaussian_mesh_splatting_tpu_torch.models import vanilla
+    from gaussian_mesh_splatting_tpu_torch.models import model_for, multi_mesh, vanilla
     from gaussian_mesh_splatting_tpu_torch.scene import Scene
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -666,7 +837,7 @@ def build_scene(dev):
     with torch.no_grad():
         bag = mesh_model.to_bag(state)
         student_bag = mesh_model.to_bag(init_state)
-    render_gt_images(scene, bag, data_dir)
+    render_gt_images(scene, bag)
     scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
     log(f"    gs_mesh scene: {bag.num_gaussians} Gaussians, "
         f"{state['consts']['faces'].shape[0]} faces, {SIZE}x{SIZE}, SH {SH_DEGREE}; "
@@ -688,21 +859,72 @@ def build_scene(dev):
     log(f"    gs scene: {int(gs_bag.alive.sum())} Gaussians alive of {gs_bag.num_gaussians} "
         f"rows, from the Blender reader's seeded points; cameras extent "
         f"{gs_scene.cameras_extent:.3f}; the same cameras and GT images")
+
+    # the COLMAP dataset: GT from a seed-43 gs_multi_mesh teacher, on black
+    colmap_dir = os.path.join(WORK, "colmap_scene")
+    write_colmap_dataset(colmap_dir)
+    colmap_kw = dict(eval=True, num_splats=NUM_SPLATS, shuffle=False, device=dev)
+    colmap_scene = Scene(colmap_dir, "gs_multi_mesh", **colmap_kw)
+    mm_init = colmap_scene.init_model_state(multi_mesh, SH_DEGREE)
+    with torch.no_grad():
+        render_gt_images(colmap_scene, multi_mesh.to_bag(randomize_state(mm_init, seed=43)),
+                         white=False)
+    colmap_scene = Scene(colmap_dir, "gs_multi_mesh", **colmap_kw)
+    n_mm = int(mm_init["alive"].shape[0])
+    log(f"    COLMAP scene: {len(colmap_scene.train_cameras)} train + "
+        f"{len(colmap_scene.test_cameras)} test PINHOLE views, "
+        f"{[int(f.shape[0]) for f in mm_init['consts']['faces']]} faces, {n_mm} Gaussians, "
+        f"{COLMAP_POINTS} points in points3D.bin; GT (RGB, black) from the seed-43 teacher")
+
+    # the FLAME head: GT from a seed-44 teacher with an expression and the
+    # jaw open, on the Blender scene's cameras (white background)
+    flame_dir = os.path.join(WORK, "flame_scene")
+    os.makedirs(flame_dir)
+    flame_pkl = os.path.join(WORK, "flame_synthetic.pkl")
+    write_flame_pickle(flame_pkl)
+    for name in ("transforms_train.json", "transforms_test.json"):
+        shutil.copyfile(os.path.join(data_dir, name), os.path.join(flame_dir, name))
+    for split in ("train", "test"):
+        shutil.copytree(os.path.join(data_dir, split), os.path.join(flame_dir, split))
+    flame_model, rig = model_for("gs_flame", flame_pkl, dev)
+    flame_kw = dict(eval=True, white_background=True, flame_rig=rig, shuffle=False, device=dev)
+    flame_scene = Scene(flame_dir, "gs_flame", **flame_kw)
+    flame_init = flame_scene.init_model_state(flame_model, SH_DEGREE)
+    teacher = randomize_state(flame_init, seed=44)
+    rng = np.random.default_rng(44)
+    p = teacher["params"]
+    p["flame_exp"] = torch.as_tensor(rng.normal(0, 1.0, (1, 50)).astype(np.float32), device=dev)
+    p["flame_pose"] = torch.tensor([[0.0, 0.1, 0.0, 0.25, 0.0, 0.0]], device=dev)
+    with torch.no_grad():
+        render_gt_images(flame_scene, flame_model.to_bag(teacher))
+        flame_bag = flame_model.to_bag(flame_init)
+    flame_scene = Scene(flame_dir, "gs_flame", **flame_kw)
+    log(f"    gs_flame scene: {rig.lbs_model.v_template.shape[0]} vertices, "
+        f"{rig.lbs_model.faces.shape[0]} faces, {flame_bag.num_gaussians} Gaussians "
+        f"({FLAME_SPLATS} per face); GT from the seed-44 teacher (an expression, the jaw open)")
     return types.SimpleNamespace(
         scene=scene, state=state, bag=bag, student_bag=student_bag, data_dir=data_dir,
         model_dir=model_dir, train_dir=train_dir, iteration=iteration,
         gs_scene=gs_scene, gs_bag=gs_bag, gs_data_dir=gs_data_dir,
         gs_train_dir=os.path.join(WORK, "gs_model"),
         gs_resume_dir=os.path.join(WORK, "gs_model_resumed"),
-        flat_train_dir=os.path.join(WORK, "gs_flat_model"))
+        flat_train_dir=os.path.join(WORK, "gs_flat_model"),
+        colmap_dir=colmap_dir, colmap_scene=colmap_scene, mm_init=mm_init,
+        mm_train_dir=os.path.join(WORK, "mm_model"),
+        mm_resume_dir=os.path.join(WORK, "mm_model_resumed"),
+        colmap_gs_dir=os.path.join(WORK, "colmap_gs_model"),
+        flame_dir=flame_dir, flame_pkl=flame_pkl, flame_scene=flame_scene,
+        flame_model=flame_model, flame_bag=flame_bag,
+        flame_train_dir=os.path.join(WORK, "flame_model"))
 
 
 def kernel_cases(ns, dev) -> dict:
     """The inputs the kernels are held against their plain versions on, as
     (args, layout) of `composite_inputs`: the render path's (teacher, train
     view 0), the training path's first step (fresh student, same view), the
-    `gs` path's first step (same view), a non-aligned 803x611 view, a dense
-    scene that drives pixels to termination, and an empty (all culled) one."""
+    `gs` and `gs_flame` paths' first steps (same view), a non-aligned 803x611
+    view, a dense scene that drives pixels to termination, and an empty (all
+    culled) one."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.core.camera import focal2fov, fov2focal, make_camera
@@ -723,6 +945,8 @@ def kernel_cases(ns, dev) -> dict:
             "full": composite_inputs(ns.bag, cam0, SH_DEGREE)[2:],
             "train": composite_inputs(ns.student_bag, cam0, SH_DEGREE)[2:],
             "gs": composite_inputs(ns.gs_bag, cam0, SH_DEGREE)[2:],
+            "flame": composite_inputs(ns.flame_bag, ns.flame_scene.train_cameras[0][0],
+                                      SH_DEGREE)[2:],
             "nonaligned": composite_inputs(ns.bag, cam_na, SH_DEGREE)[2:],
             "dense": composite_inputs(dense_scene(4000, 2, dev), cam_dense, 3)[2:],
             "empty": composite_inputs(culled, cam_small, 3)[2:],
@@ -740,6 +964,7 @@ def main() -> int:
         return 2
     from gaussian_mesh_splatting_tpu_torch import bench
     from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
+    from gaussian_mesh_splatting_tpu_torch.apps import render_flame as render_flame_app
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
     from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
@@ -795,7 +1020,12 @@ def main() -> int:
                                    *cases["gs"], time_it=True, plain_reps=(1, 0))
         if gs_fwd["max_abs_err_rgbT"] != 0.0 or gs_fwd["max_abs_err_depth"] != 0.0:
             raise SystemExit("B1 is not bit-equal to its plain version on the gs case")
-        fwd_walks = [full["walk"], gs_fwd["walk"],
+        flame_fwd = compare_composite(
+            f"gs_flame first step 800x800 ({ns.flame_bag.num_gaussians} Gaussians)",
+            *cases["flame"], time_it=True, plain_reps=(1, 0))
+        if flame_fwd["max_abs_err_rgbT"] != 0.0 or flame_fwd["max_abs_err_depth"] != 0.0:
+            raise SystemExit("B1 is not bit-equal to its plain version on the gs_flame case")
+        fwd_walks = [full["walk"], gs_fwd["walk"], flame_fwd["walk"],
                      compare_composite("gs_mesh 803x611", *cases["nonaligned"], False)["walk"]]
         dense = compare_composite("dense overlap 512x512", *cases["dense"], False)
         fwd_walks.append(dense["walk"])
@@ -833,13 +1063,19 @@ def main() -> int:
     gs_bwd = compare_composite_bwd(
         f"gs first step 800x800 ({GS_POINTS} alive of {GS_CAPACITY}, vs GT)", *cases["gs"], gt0,
         time_it=True, plain_reps=(1, 0))
+    flame_gt0 = torch.as_tensor(ns.flame_scene.train_cameras[0][1], device=dev)
+    flame_bwd = compare_composite_bwd(
+        f"gs_flame first step 800x800 ({ns.flame_bag.num_gaussians} Gaussians, vs GT)",
+        *cases["flame"], flame_gt0, time_it=True, plain_reps=(1, 0),
+        ops=flame_fwd["op_counts"])
     compare_composite_bwd("gs_mesh 803x611", *cases["nonaligned"], random_teacher(611, 803), False)
     compare_composite_bwd("dense overlap 512x512", *cases["dense"], random_teacher(512, 512),
                           False)
     compare_composite_bwd("empty (all culled) 200x50", *cases["empty"], random_teacher(50, 200),
                           False)
     for key in ("tiles_ragged_over_two_batches", "tiles_with_idle_and_busy_warps"):
-        if not any(walk[key] for walk in fwd_walks + [full_bwd["walk"], gs_bwd["walk"]]):
+        if not any(walk[key] for walk in
+                   fwd_walks + [full_bwd["walk"], gs_bwd["walk"], flame_bwd["walk"]]):
             raise SystemExit(f"no case has {key}: a path of the kernels went unchecked")
     grad_err = oracle_gradients(cam_small)
     log(f"  CUDA rasterizer gradients vs torch oracle autograd (96 Gaussians, 200x50): "
@@ -865,8 +1101,9 @@ def main() -> int:
         raise SystemExit(f"expected {n_views} forward and 0 backward launches")
     from PIL import Image
 
-    def check_pngs(model: str, it: int, gs_type: str = "gs_mesh") -> None:
-        for split, n_cams in [("train", N_TRAIN), ("test", N_TEST)]:
+    def check_pngs(model: str, it: int, gs_type: str = "gs_mesh",
+                   views=(("train", N_TRAIN), ("test", N_TEST))) -> None:
+        for split, n_cams in views:
             for i in range(n_cams):
                 png = os.path.join(model, split, f"ours_{it}", f"renders_{gs_type}",
                                    f"{i:05d}.png")
@@ -891,45 +1128,129 @@ def main() -> int:
     log("    PNGs: all written, finite, not blank; train view 0 matches the kernel output")
 
     # ---- 4. the training path through the user's entry point ---------------
+    def train_run(label: str, argv: list[str], iters: int, n_evals: int, must_fall: float = 1.0):
+        """apps.train.main(argv) with the launch counts set to 0 just before
+        it; checks a finite loss that falls (the last 20 steps' mean below
+        `must_fall` times the first 20's), a test PSNR that rises, B2 once per
+        step, B1 once per step and eval view, and finite gradients at the
+        last step. Returns (result, fwd launches, bwd launches)."""
+        rc.composite_fwd_cuda.launches = 0
+        rc.composite_bwd_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_app.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches
+        first, last = float(np.mean(res.losses[:20])), float(np.mean(res.losses[-20:]))
+        psnrs = [res.test_psnr[i] for i in sorted(res.test_psnr)]
+        log(f"    {label}: {iters} steps in {wall:.2f} s ({1e3 * wall / iters:.1f} ms per step, "
+            f"scene load, evals and snapshot included); mean loss first 20 {first:.5f}, "
+            f"last 20 {last:.5f}; test PSNR {json.dumps(res.test_psnr)}; composite_fwd "
+            f"launches {fwd}, composite_bwd launches {bwd}")
+        if not np.isfinite(res.losses).all() or not last < must_fall * first:
+            raise SystemExit(f"{label}: the training loss did not fall")
+        if not psnrs[-1] > psnrs[0]:
+            raise SystemExit(f"{label}: the test PSNR did not rise")
+        if bwd != iters or fwd != iters + n_evals:
+            raise SystemExit(f"{label}: expected {iters} backward and {iters + n_evals} "
+                             "forward launches")
+        if not all(bool(torch.isfinite(t.grad).all()) for v in res.state.params.values()
+                   for t in (v if isinstance(v, list) else [v])):
+            raise SystemExit(f"{label}: a gradient of the last train step is not finite")
+        return res, fwd, bwd
+
     log(f"[4] apps.train.main on the card: {TRAIN_ITERS} steps, evals at {list(TEST_ITERS)}")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = train_app.main([
-        "--gs_type", "gs_mesh", "-s", data_dir, "-m", train_dir, "--eval",
-        "--num_splats", str(NUM_SPLATS), "--sh_degree", str(SH_DEGREE), "--white_background",
-        "--iterations", str(TRAIN_ITERS), "--test_iterations", *map(str, TEST_ITERS),
-        "--save_iterations", str(TRAIN_ITERS),
-    ])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    fwd_launches = rc.composite_fwd_cuda.launches
-    bwd_launches = rc.composite_bwd_cuda.launches
-    losses = result.losses
-    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
-    psnrs = [result.test_psnr[i] for i in TEST_ITERS]
-    n_eval_renders = len(TEST_ITERS) * N_TEST
-    log(f"    {TRAIN_ITERS} steps in {train_s:.2f} s ({1e3 * train_s / TRAIN_ITERS:.1f} ms per "
-        f"step, scene load, evals and snapshot included); mean loss first 20 {first:.5f}, "
-        f"last 20 {last:.5f}; test PSNR {json.dumps(dict(zip(TEST_ITERS, psnrs)))}; "
-        f"composite_fwd launches {fwd_launches}, composite_bwd launches {bwd_launches}")
-    if not np.isfinite(losses).all() or not last < 0.8 * first:
-        raise SystemExit("the training loss did not fall by 20 %")
-    if not psnrs[-1] > psnrs[0]:
-        raise SystemExit("the test PSNR did not rise")
-    if bwd_launches != TRAIN_ITERS or fwd_launches != TRAIN_ITERS + n_eval_renders:
-        raise SystemExit(f"expected {TRAIN_ITERS} backward and {TRAIN_ITERS + n_eval_renders} "
-                         "forward launches")
-    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in result.state.params.values())
-    if not grads_finite:
-        raise SystemExit("a gradient of the last train step is not finite")
+    result, fwd_launches, bwd_launches = train_run(
+        "gs_mesh", ["--gs_type", "gs_mesh", "-s", data_dir, "-m", train_dir, "--eval",
+                    "--num_splats", str(NUM_SPLATS), "--sh_degree", str(SH_DEGREE),
+                    "--white_background", "--iterations", str(TRAIN_ITERS),
+                    "--test_iterations", *map(str, TEST_ITERS),
+                    "--save_iterations", str(TRAIN_ITERS)],
+        TRAIN_ITERS, len(TEST_ITERS) * N_TEST, must_fall=0.8)
     rc.composite_fwd_cuda.launches = 0
     render_app.main(["-m", train_dir])
     if rc.composite_fwd_cuda.launches != n_views:
         raise SystemExit("the trained snapshot did not render through the kernel")
     check_pngs(train_dir, TRAIN_ITERS)
     log("    the trained snapshot renders through apps.render; all gradients finite")
+
+    colmap_views = (("train", N_COLMAP - N_COLMAP_TEST), ("test", N_COLMAP_TEST))
+    log(f"[4] apps.train.main --gs_type gs_multi_mesh on the card: the COLMAP dataset, "
+        f"{MM_ITERS} steps, evals at {list(MM_TEST_ITERS)}, checkpoint at {MM_CHECKPOINT}")
+    mm_argv = ["--gs_type", "gs_multi_mesh", "-s", ns.colmap_dir, "--eval", "--num_splats",
+               str(NUM_SPLATS), "--sh_degree", str(SH_DEGREE)]
+    mm_result, mm_fwd_launches, mm_bwd_launches = train_run(
+        "gs_multi_mesh", [*mm_argv, "-m", ns.mm_train_dir, "--iterations", str(MM_ITERS),
+                          "--test_iterations", *map(str, MM_TEST_ITERS),
+                          "--save_iterations", str(MM_ITERS),
+                          "--checkpoint_iterations", str(MM_CHECKPOINT)],
+        MM_ITERS, len(MM_TEST_ITERS) * N_COLMAP_TEST)
+    mm_state = mm_result.state
+    moved = [float((a.detach() - a0).abs().max()) for a, a0 in
+             zip(mm_state.params["alpha"], ns.mm_init["params"]["alpha"])]
+    log(f"    {mm_state.alive.shape[0]} Gaussians over {len(moved)} meshes; largest alpha move "
+        f"per mesh {moved}")
+    if mm_state.alive.shape[0] != ns.mm_init["alive"].shape[0] or not min(moved) > 0:
+        raise SystemExit("every mesh's alpha must move")
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    mm_resumed = train_app.main([
+        *mm_argv, "-m", ns.mm_resume_dir, "--iterations", str(MM_RESUME_ITERS),
+        "--test_iterations", str(MM_RESUME_ITERS), "--save_iterations", str(MM_RESUME_ITERS),
+        "--start_checkpoint", train_app.checkpoint_path(ns.mm_train_dir, MM_CHECKPOINT)])
+    n_mm_resumed = MM_RESUME_ITERS - MM_CHECKPOINT
+    log(f"    resumed from chkpnt{MM_CHECKPOINT}.pt: {len(mm_resumed.losses)} steps to step "
+        f"{mm_resumed.state.step}; composite_bwd launches {rc.composite_bwd_cuda.launches}")
+    if (len(mm_resumed.losses) != n_mm_resumed or mm_resumed.state.step != MM_RESUME_ITERS
+            or rc.composite_bwd_cuda.launches != n_mm_resumed
+            or rc.composite_fwd_cuda.launches != n_mm_resumed + N_COLMAP_TEST
+            or not np.isfinite(mm_resumed.losses).all()):
+        raise SystemExit("the resumed gs_multi_mesh run did not begin at the checkpoint's step")
+    rc.composite_fwd_cuda.launches = 0
+    render_app.main(["-m", ns.mm_train_dir])
+    if rc.composite_fwd_cuda.launches != N_COLMAP:
+        raise SystemExit("the gs_multi_mesh snapshot did not render through the kernel")
+    check_pngs(ns.mm_train_dir, MM_ITERS, "gs_multi_mesh", colmap_views)
+    log(f"    the gs_multi_mesh snapshot renders through apps.render ({N_COLMAP} PNGs)")
+
+    log(f"[4] apps.train.main --gs_type gs_flame on the card: {FLAME_ITERS} steps at "
+        f"{FLAME_SPLATS} splats per face, evals at {list(FLAME_TEST_ITERS)}")
+    flame_result, flame_fwd_launches, flame_bwd_launches = train_run(
+        "gs_flame", ["--gs_type", "gs_flame", "-s", ns.flame_dir, "-m", ns.flame_train_dir,
+                     "--flame_model", ns.flame_pkl, "--eval", "--white_background",
+                     "--sh_degree", str(SH_DEGREE), "--iterations", str(FLAME_ITERS),
+                     "--test_iterations", *map(str, FLAME_TEST_ITERS),
+                     "--save_iterations", str(FLAME_ITERS)],
+        FLAME_ITERS, len(FLAME_TEST_ITERS) * N_TEST)
+    flame_state = flame_result.state
+    flame_grads = {k: float(flame_state.params[k].grad.abs().max()) for k in FLAME_PARAMS}
+    log(f"    {flame_state.alive.shape[0]} Gaussians; max |gradient| of the FLAME params at the "
+        f"last step {json.dumps(flame_grads)}")
+    if flame_state.alive.shape[0] != ns.flame_bag.num_gaussians:
+        raise SystemExit("the gs_flame run has another Gaussian count than its scene")
+    if not all(bool(torch.isfinite(flame_state.params[k].grad).all()) and g > 0
+               for k, g in flame_grads.items()):
+        raise SystemExit("every FLAME param needs a finite, nonzero gradient")
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    render_flame_app.main(["-m", ns.flame_train_dir, "--animated", "--frames", str(FLAME_FRAMES),
+                           "--dump_obj"])
+    render_flame_launches = rc.composite_fwd_cuda.launches
+    out = os.path.join(ns.flame_train_dir, "renders_flame_animated")
+    names = sorted(os.listdir(out))
+    expect = [f"{i:05d}.png" for i in range(FLAME_FRAMES)] + \
+        [f"head_{i:05d}.obj" for i in range(FLAME_FRAMES)]
+    log(f"    apps.render_flame --animated --frames {FLAME_FRAMES} --dump_obj: {names}; "
+        f"composite_fwd launches {render_flame_launches}")
+    if names != expect or render_flame_launches != FLAME_FRAMES \
+            or rc.composite_bwd_cuda.launches != 0:
+        raise SystemExit(f"apps.render_flame: expected {expect} and {FLAME_FRAMES} launches")
+    for name in names[:FLAME_FRAMES]:
+        with Image.open(os.path.join(out, name)) as im:
+            img = np.asarray(im, dtype=np.float32)
+        if img.shape != (SIZE, SIZE, 3) or img.std() < 1.0:
+            raise SystemExit(f"bad render_flame frame {name}")
 
     # ---- 5. the gs training path (densification) through the entry points ---
     log(f"[5] apps.train.main --gs_type gs on the card: {GS_POINTS} points, capacity "
@@ -1077,6 +1398,18 @@ def main() -> int:
     if soup["max_abs_diff_255"] > SOUP_TOL:
         raise SystemExit("the gs_points render of the soup differs from the gs_flat render")
 
+    log(f"[5] apps.train.main --gs_type gs on the card: the COLMAP dataset's "
+        f"{COLMAP_POINTS} points, {COLMAP_GS_ITERS} steps")
+    colmap_gs_result, colmap_gs_fwd_launches, colmap_gs_bwd_launches = train_run(
+        "gs on COLMAP", ["--gs_type", "gs", "-s", ns.colmap_dir, "-m", ns.colmap_gs_dir,
+                         "--eval", "--sh_degree", str(SH_DEGREE),
+                         "--iterations", str(COLMAP_GS_ITERS),
+                         "--test_iterations", *map(str, COLMAP_GS_TEST_ITERS),
+                         "--save_iterations", str(COLMAP_GS_ITERS)],
+        COLMAP_GS_ITERS, len(COLMAP_GS_TEST_ITERS) * N_COLMAP_TEST)
+    if int(colmap_gs_result.state.alive.sum()) != COLMAP_POINTS:
+        raise SystemExit("the COLMAP gs run did not start from the points3D points")
+
     # ---- 6. timings ---------------------------------------------------------
     with torch.no_grad():
         n_ty, n_tx = -(-cam0.height // rc.TILE), -(-cam0.width // rc.TILE)
@@ -1147,6 +1480,15 @@ def main() -> int:
     log(f"    gs train step at a fresh state ({int(gs_fresh.alive.sum())} alive of {GS_CAPACITY} "
         f"rows), 800x800: {json.dumps(gs_split_first)}")
     del gs_fresh
+    mm_cam, mm_gt = ns.colmap_scene.train_cameras[0]
+    mm_split = train_step_split("gs_multi_mesh", mm_state, mm_cam,
+                                torch.as_tensor(mm_gt, device=dev), torch.zeros(3, device=dev))
+    log(f"    gs_multi_mesh train step at step {MM_ITERS} ({mm_state.alive.shape[0]} Gaussians), "
+        f"800x800: {json.dumps(mm_split)}")
+    flame_split = train_step_split("gs_flame", flame_state, ns.flame_scene.train_cameras[0][0],
+                                   flame_gt0, torch.ones(3, device=dev), model=ns.flame_model)
+    log(f"    gs_flame train step at step {FLAME_ITERS} ({flame_state.alive.shape[0]} Gaussians; "
+        f"to_bag runs the FLAME decoder), 800x800: {json.dumps(flame_split)}")
     # one densify event at the gs path's last state (it has the statistics of
     # the steps just timed) and the KNN scale init of the path's point cloud
     event_kw = dict(grad_threshold=2e-4, min_opacity=0.005, extent=ns.gs_scene.cameras_extent,
@@ -1181,7 +1523,12 @@ def main() -> int:
         "launches_train": fwd_launches,
         "launches_gs_train": gs_fwd_launches,
         "launches_gs_flat_train": flat_fwd_launches,
-        "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"]),
+        "launches_multi_mesh_train": mm_fwd_launches,
+        "launches_colmap_gs_train": colmap_gs_fwd_launches,
+        "launches_flame_train": flame_fwd_launches,
+        "launches_render_flame": render_flame_launches,
+        "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"],
+                           flame_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
         "queued_ms": full["queued_ms"],
         "plain_ms": full["plain_ms"],
@@ -1190,6 +1537,8 @@ def main() -> int:
         "library_ms": None,
         **{f"gs_{k}": gs_fwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms", "bound_ms",
                                           "bound_by")},
+        **{f"flame_{k}": flame_fwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms",
+                                                "bound_ms", "bound_by")},
     }, {
         "name": "composite_bwd",
         "route": "cuda",
@@ -1200,8 +1549,13 @@ def main() -> int:
         "launches_train": bwd_launches,
         "launches_gs_train": gs_bwd_launches,
         "launches_gs_flat_train": flat_bwd_launches,
+        "launches_multi_mesh_train": mm_bwd_launches,
+        "launches_colmap_gs_train": colmap_gs_bwd_launches,
+        "launches_flame_train": flame_bwd_launches,
+        "launches_render_flame": 0,
         "max_abs_err": max(full_bwd["photometric"]["max_abs_err"],
-                           gs_bwd["photometric"]["max_abs_err"]),
+                           gs_bwd["photometric"]["max_abs_err"],
+                           flame_bwd["photometric"]["max_abs_err"]),
         "ms": full_bwd["ms"],
         "queued_ms": full_bwd["queued_ms"],
         "plain_ms": full_bwd["plain_ms"],
@@ -1210,6 +1564,8 @@ def main() -> int:
         "library_ms": None,
         **{f"gs_{k}": gs_bwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms", "bound_ms",
                                           "bound_by")},
+        **{f"flame_{k}": flame_bwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms",
+                                                "bound_ms", "bound_by")},
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -1,7 +1,8 @@
 """Batch rendering CLI (port of `gaussian_mesh_splatting_tpu/apps/render.py`).
 
 Renders the train and test views of a trained model (`gs`, `gs_flat`,
-`gs_mesh`, or a `gs_flat` model as `--gs_type gs_points`) to PNG under
+`gs_mesh`, `gs_multi_mesh`, `gs_flame`, or a `gs_flat` model as `--gs_type
+gs_points`) to PNG under
 {model}/{split}/ours_{iteration}/renders_{gs_type}/ and gt/. Runs on the
 CUDA device (preprocess, binning and the CUDA composite kernel) unless
 `--device cpu` is given, which takes the kernel's plain PyTorch version.
@@ -34,7 +35,7 @@ def render_sets(args) -> None:
     from ..io.checkpoint import snapshot_dir
     from ..io.config_io import combined_args
     from ..io.snapshots import load_snapshot
-    from ..models import get_model
+    from ..models import model_for
     from ..renderer import render
     from ..scene import Scene
 
@@ -43,22 +44,30 @@ def render_sets(args) -> None:
         "source_path": args.source_path, "gs_type": args.gs_type,
     })
     gs_type = cfg.get("gs_type", "gs")
-    model = get_model(gs_type)
     sh_degree = int(cfg.get("sh_degree", 3))
+    model, flame_rig = model_for(gs_type, cfg.get("flame_model"), device)
 
     scene = Scene(
         cfg["source_path"], gs_type,
         white_background=bool(cfg.get("white_background", False)),
         eval=bool(cfg.get("eval", True)),
         resolution=int(cfg.get("resolution", -1)),
+        images=cfg.get("images"),
         num_splats=int(cfg.get("num_splats", 2)),
+        meshes=cfg.get("meshes"),
+        flame_rig=flame_rig,
         shuffle=False,
         device=device,
     )
     iteration = args.iteration if args.iteration > 0 else latest_iteration(args.model_path)
     # mesh faces do not travel in the snapshot: rebuild them from the scene's
-    # mesh; a point-cloud state has none
-    consts = scene.init_model_state(model, sh_degree)["consts"] if gs_type == "gs_mesh" else {}
+    # meshes, or take the FLAME rig's; a point-cloud state has none
+    if gs_type == "gs_flame":
+        consts = {"faces": model.faces}
+    elif gs_type in ("gs_mesh", "gs_multi_mesh"):
+        consts = scene.init_model_state(model, sh_degree)["consts"]
+    else:
+        consts = {}
     state = load_snapshot(
         gs_type, snapshot_dir(args.model_path, iteration), sh_degree, consts, device=device
     )

@@ -1,8 +1,16 @@
 """Training CLI (port of `gaussian_mesh_splatting_tpu/apps/train.py`, the
-single-device paths: `gs_mesh`, and `gs` / `gs_flat` with densification).
+single-device paths: `gs_mesh`, `gs_multi_mesh`, `gs_flame`, and `gs` /
+`gs_flat` with densification).
 
     python -m gaussian_mesh_splatting_tpu_torch.apps.train \\
-        --gs_type gs|gs_flat|gs_mesh -s <dataset> -m <output> [--eval] [--device cpu] ...
+        --gs_type gs|gs_flat|gs_mesh|gs_multi_mesh|gs_flame -s <dataset> -m <output> \\
+        [--eval] [--device cpu] ...
+
+The dataset is a Blender one (`transforms_*.json`; with `mesh.obj` for
+`gs_mesh`) or a COLMAP one (`sparse/0`; `gs_multi_mesh` trains on its
+`sparse/0/*.obj` meshes, or those `--meshes` names; `--images` names the
+image directory). `gs_flame` trains on a Blender dataset and needs
+`--flame_model <FLAME pickle>`.
 
 Flow: Scene (writes `input.ply` and `cameras.json`) -> initial state (for
 `gs` / `gs_flat` a buffer of `--capacity_mult` times the point count) or the
@@ -20,7 +28,7 @@ CUDA run draw different samples from one seed.
 
 Flags whose paths are not ported raise NotImplementedError: `--port`,
 `--profile_steps`, `--detect_anomaly`, `--shard`/`--data_parallel` with more
-than one device, and the gs_types `gs_multi_mesh` and `gs_flame`.
+than one device.
 """
 from __future__ import annotations
 
@@ -57,7 +65,11 @@ def dump_debug_state(model_path: str, it: int, tstate, cam) -> str:
     flat = {"step": np.asarray(tstate.step)}
     for group in ("params", "consts"):
         for k, v in getattr(tstate, group).items():
-            flat[f"{group}/{k}"] = v.detach().cpu().numpy()
+            if isinstance(v, list):  # one tensor per mesh
+                flat.update({f"{group}/{k}/{i}": t.detach().cpu().numpy()
+                             for i, t in enumerate(v)})
+            else:
+                flat[f"{group}/{k}"] = v.detach().cpu().numpy()
     flat["alive"] = tstate.alive.cpu().numpy()
     for attr in ("world_view", "full_proj", "cam_center"):
         flat[f"camera/{attr}"] = getattr(cam, attr).cpu().numpy()
@@ -134,7 +146,7 @@ def main(argv=None) -> TrainResult:
     from ..io.checkpoint import restore_checkpoint, save_checkpoint, snapshot_dir
     from ..io.config_io import save_cfg
     from ..io.snapshots import save_snapshot
-    from ..models import get_model
+    from ..models import model_for
     from ..scene import Scene
     from ..train import (
         densify_and_prune,
@@ -155,7 +167,7 @@ def main(argv=None) -> TrainResult:
     random.seed(args.seed)
     np.random.seed(args.seed)
 
-    model = get_model(args.gs_type)
+    model, flame_rig = model_for(args.gs_type, args.flame_model, device)
     overrides = {
         k: getattr(args, k)
         for k in ["iterations", "lambda_dssim", "densify_grad_threshold",
@@ -174,8 +186,8 @@ def main(argv=None) -> TrainResult:
     scene = Scene(
         args.source_path, args.gs_type, model_path=args.model_path,
         white_background=args.white_background, eval=args.eval,
-        resolution=args.resolution, num_splats=args.num_splats,
-        seed=args.seed, device=device,
+        resolution=args.resolution, images=args.images, num_splats=args.num_splats,
+        meshes=args.meshes, flame_rig=flame_rig, seed=args.seed, device=device,
     )
     densify = getattr(cfg, "densify", False)
     n0 = len(scene.scene_info.point_cloud.points)

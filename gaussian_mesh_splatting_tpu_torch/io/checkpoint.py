@@ -3,8 +3,9 @@
 
   (a) A training checkpoint is the whole TrainState in one file, written by
       `torch.save` as a plain dict of tensors and ints and read back with
-      `torch.load(weights_only=True)` (no pickled code): params, the Adam
-      moments and step of each group, the densification statistics, `alive`,
+      `torch.load(weights_only=True)` (no pickled code): params (a key may
+      hold a list of tensors), the Adam moments and step of every tensor of
+      each group, in order, the densification statistics, `alive`,
       `consts`, `step`, `active_sh_degree`. The JAX package writes an orbax
       directory; the two formats do not read each other.
   (b) A model snapshot is `point_cloud/iteration_{N}/point_cloud.ply` in the
@@ -21,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..train.state import DensifyStats, TrainState, optimizer_like
+from ..train.state import DensifyStats, TrainState, optimizer_like, param_leaves
 
 _STATS = ("grad_accum", "denom", "max_radii")
 
@@ -29,16 +30,17 @@ _STATS = ("grad_accum", "denom", "max_radii")
 def save_checkpoint(path: str, state: TrainState) -> None:
     """Write `state` to the file `path`."""
     optimizer = state.optimizer
-    adam = {}
-    for group in optimizer.param_groups:
-        (p,) = group["params"]
-        # a group that has taken no step yet has no moments
-        adam[group["name"]] = {k: v.detach() for k, v in optimizer.state.get(p, {}).items()}
+    # a tensor that has taken no step yet has no moments
+    adam = {group["name"]: [{k: v.detach() for k, v in optimizer.state.get(p, {}).items()}
+                            for p in group["params"]]
+            for group in optimizer.param_groups}
+    params = {k: [t.detach() for t in v] if isinstance(v, list) else v.detach()
+              for k, v in state.params.items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({
         "step": int(state.step),
         "active_sh_degree": int(state.active_sh_degree),
-        "params": {k: v.detach() for k, v in state.params.items()},
+        "params": params,
         "adam": adam,
         "stats": {k: getattr(state.stats, k) for k in _STATS},
         "alive": state.alive,
@@ -56,13 +58,22 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     if set(ckpt["params"]) != set(template.params):
         raise ValueError(f"{path} holds params {sorted(ckpt['params'])}, "
                          f"the model has {sorted(template.params)}")
-    params = {k: ckpt["params"][k].requires_grad_(True) for k in template.params}
+    lengths = {k: len(v) for k, v in ckpt["params"].items() if isinstance(v, list)}
+    expected = {k: len(v) for k, v in template.params.items() if isinstance(v, list)}
+    if lengths != expected:
+        raise ValueError(f"{path} holds per-mesh lists of lengths {lengths}, "
+                         f"the model has {expected}")
+    params = {}
+    for k in template.params:
+        v = ckpt["params"][k]
+        params[k] = [t.requires_grad_(True) for t in v] if isinstance(v, list) \
+            else v.requires_grad_(True)
     optimizer = optimizer_like(template.optimizer, params)
     for name, moments in ckpt["adam"].items():
-        if moments:
-            # Adam keeps "step" on the host unless it is capturable
-            optimizer.state[params[name]] = {
-                k: v.cpu() if k == "step" else v for k, v in moments.items()}
+        for p, m in zip(param_leaves(params[name]), moments):
+            if m:
+                # Adam keeps "step" on the host unless it is capturable
+                optimizer.state[p] = {k: v.cpu() if k == "step" else v for k, v in m.items()}
     return TrainState(
         step=int(ckpt["step"]),
         params=params,

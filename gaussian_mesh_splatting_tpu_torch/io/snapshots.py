@@ -5,7 +5,9 @@ Port of `gaussian_mesh_splatting_tpu/io/snapshots.py`, in the same format, so
 a snapshot written by either package loads in the other. `gs` and `gs_flat`
 save the raw params of their alive rows and no sidecar. The other models'
 PLY carries the derived Gaussian attributes (renderable by any 3DGS viewer)
-and the sidecar their parameterization (`gs_mesh`: vertices, alpha, scale).
+and the sidecar their parameterization (`gs_mesh`: vertices, alpha, scale;
+`gs_multi_mesh`: the same per mesh, as `vertices/0`, `vertices/1`, ...;
+`gs_flame`: the FLAME params, the enlargement, alpha and scale).
 `gs_points` loads a `gs_flat` PLY.
 """
 from __future__ import annotations
@@ -16,23 +18,23 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import GS_TYPES
 from ..models.gaussian_bag import shs_to_features
 from .checkpoint import load_sidecar, save_sidecar, unflatten_sidecar
 from .ply import load_gaussians_ply, save_gaussians_ply
 
 SIDECAR_NAME = "model_params.npz"
 POINT_GS_TYPES = ("gs", "gs_flat", "gs_points")  # the PLY holds the raw params
-PORTED_GS_TYPES = (*POINT_GS_TYPES, "gs_mesh")
 
 
-def _check_ported(gs_type: str) -> None:
-    if gs_type not in PORTED_GS_TYPES:
-        raise NotImplementedError(f"snapshots of gs_type {gs_type!r} are not ported yet")
+def _check_gs_type(gs_type: str) -> None:
+    if gs_type not in GS_TYPES:
+        raise ValueError(f"unknown gs_type {gs_type!r}; snapshots exist for {GS_TYPES}")
 
 
 def save_snapshot(gs_type: str, model, state: dict, dirpath: str) -> str:
     """Write point_cloud.ply (and the sidecar). Returns the ply path."""
-    _check_ported(gs_type)
+    _check_gs_type(gs_type)
     os.makedirs(dirpath, exist_ok=True)
     ply_path = os.path.join(dirpath, "point_cloud.ply")
     p = state["params"]
@@ -72,9 +74,10 @@ def load_snapshot(
     device: str | torch.device | None = None,
 ) -> dict:
     """Rebuild a model state from a snapshot directory, on `device`
-    (CUDA unless the caller asks for another). `consts` (the mesh faces)
-    do not travel in the snapshot; the caller supplies them."""
-    _check_ported(gs_type)
+    (CUDA unless the caller asks for another). A sidecar's lists (the
+    per-mesh params) become lists of tensors. `consts` (the mesh faces) do
+    not travel in the snapshot; the caller supplies them."""
+    _check_gs_type(gs_type)
     dev = resolve_device(device)
     cols = load_gaussians_ply(os.path.join(dirpath, "point_cloud.ply"), max_sh_degree=sh_degree)
     if gs_type in POINT_GS_TYPES:
@@ -90,7 +93,8 @@ def load_snapshot(
         params.update(unflatten_sidecar(load_sidecar(sidecar_path)))
     n = cols["xyz"].shape[0]
     return {
-        "params": {k: torch.as_tensor(v, device=dev) for k, v in params.items()},
+        "params": {k: [torch.as_tensor(x, device=dev) for x in v] if isinstance(v, list)
+                   else torch.as_tensor(v, device=dev) for k, v in params.items()},
         "consts": dict(consts or {}),
         "alive": torch.ones((n,), dtype=torch.bool, device=dev),
     }

@@ -1,8 +1,10 @@
 """Training state (port of `gaussian_mesh_splatting_tpu/train/state.py`).
 
 The JAX package's optax `multi_transform` becomes one `torch.optim.Adam`
-with one param group per top-level param key, each at its reference
-learning rate, with optax's defaults betas (0.9, 0.999) and the reference's
+with one param group per top-level param key (a key may hold a list of
+tensors, as `gs_multi_mesh`'s per-mesh params do: they share the key's
+group, as optax labels by top-level key), each at its reference learning
+rate, with optax's defaults betas (0.9, 0.999) and the reference's
 eps = 1e-15. For `OptimizationConfig` the `xyz` group carries the
 log-linear position schedule (scaled by the scene extent) under the group
 key "lr_schedule"; `apply_lr_schedules` sets each such group's lr for the
@@ -47,7 +49,7 @@ class TrainState:
     """Mutable training state: the train step updates it in place."""
 
     step: int
-    params: dict[str, torch.Tensor]  # leaf tensors with requires_grad
+    params: dict[str, torch.Tensor | list[torch.Tensor]]  # leaves with requires_grad
     optimizer: torch.optim.Adam
     alive: torch.Tensor  # (C,) bool
     consts: dict  # non-trainable constants (faces, ...)
@@ -56,6 +58,11 @@ class TrainState:
 
     def model_state(self) -> dict:
         return {"params": self.params, "consts": self.consts, "alive": self.alive}
+
+
+def param_leaves(value) -> list[torch.Tensor]:
+    """The tensors of one param key: a list as it is, a tensor as [tensor]."""
+    return list(value) if isinstance(value, (list, tuple)) else [value]
 
 
 def group_learning_rates(config, spatial_lr_scale: float = 1.0) -> dict[str, Any]:
@@ -104,11 +111,12 @@ def group_learning_rates(config, spatial_lr_scale: float = 1.0) -> dict[str, Any
 
 
 def make_optimizer(
-    params: dict[str, torch.Tensor],
+    params: dict[str, torch.Tensor | list[torch.Tensor]],
     config,
     spatial_lr_scale: float = 1.0,
 ) -> torch.optim.Adam:
-    """One Adam param group per top-level param key (named by "name")."""
+    """One Adam param group per top-level param key (named by "name"),
+    holding the key's tensors."""
     lrs = group_learning_rates(config, spatial_lr_scale)
     missing = set(params) - set(lrs)
     if missing:
@@ -116,7 +124,7 @@ def make_optimizer(
     groups = []
     for name, p in params.items():
         lr = lrs[name]
-        group = {"params": [p], "name": name}
+        group = {"params": param_leaves(p), "name": name}
         if callable(lr):
             group["lr_schedule"] = lr
             group["lr"] = lr(0)
@@ -126,13 +134,14 @@ def make_optimizer(
     return torch.optim.Adam(groups, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
-def optimizer_like(optimizer: torch.optim.Adam, params: dict[str, torch.Tensor]) -> torch.optim.Adam:
+def optimizer_like(optimizer: torch.optim.Adam, params: dict) -> torch.optim.Adam:
     """A fresh Adam (no moments) over `params`, new leaf tensors keyed like
     the old optimizer's groups, with each group's settings (lr, schedule,
     betas, eps) as they stand in `optimizer`: what replaces an optimizer when
     the params change shape (`grow_capacity`, a restored checkpoint)."""
     groups = [{**{k: v for k, v in group.items() if k != "params"},
-               "params": [params[group["name"]]]} for group in optimizer.param_groups]
+               "params": param_leaves(params[group["name"]])}
+              for group in optimizer.param_groups]
     return torch.optim.Adam(groups, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
@@ -151,11 +160,15 @@ def make_train_state(
     spatial_lr_scale: float = 1.0,
 ) -> TrainState:
     """A fresh TrainState. The params become leaf tensors that require
-    grad (detached copies of the model state's). Their rows may be a capacity
+    grad (detached copies of the model state's; a list stays a list). Their rows may be a capacity
     buffer (`alive` marks the live ones): densification statistics and Adam
     moments cover every row. `spatial_lr_scale` is the scene extent
     (`Scene.cameras_extent`), which scales the `xyz` schedule."""
-    params = {k: v.detach().clone().requires_grad_(True) for k, v in model_state["params"].items()}
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    params = {k: [leaf(t) for t in v] if isinstance(v, (list, tuple)) else leaf(v)
+              for k, v in model_state["params"].items()}
     alive = model_state["alive"]
     return TrainState(
         step=0,

@@ -1,5 +1,7 @@
 """The port's training checkpoints, and model snapshots of the point-cloud
-models across the two packages, on the CPU.
+models and of `gs_flame` across the two packages, on the CPU (the
+`gs_multi_mesh` cases, with list-valued params, are in
+tests/test_torch_multi_mesh.py).
 
 A checkpoint gives back every tensor bit for bit, and the next train step
 from the restored state equals the next step from the original exactly (the
@@ -190,5 +192,65 @@ def test_snapshot_written_by_the_port_loads_in_jax(gs_type, tmp_path):
 
 
 def test_snapshots_of_unported_models_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="gs_multi_mesh"):
-        load_snapshot("gs_multi_mesh", str(tmp_path), device="cpu")
+    """A gs_type the package does not have, and a mesh model's snapshot
+    without its sidecar."""
+    with pytest.raises(ValueError, match="unknown gs_type 'gs_bogus'"):
+        load_snapshot("gs_bogus", str(tmp_path), device="cpu")
+    state = _point_state("gs_flat", seed=5, n=30, capacity=40, sh_degree=2)
+    j_save_snapshot("gs_flat", J_MODELS["gs_flat"], _jax_state(state), str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="sidecar"):
+        load_snapshot("gs_multi_mesh", str(tmp_path), sh_degree=2, device="cpu")
+
+
+# ---------------------------------------------------------------- gs_flame
+
+def _flame_train_state():
+    from test_torch_flame import _flame_states
+
+    _, tmodel, _, tstate = _flame_states()
+    cfg = optimization_config("gs_flame")
+    state = make_train_state(tstate, cfg)
+    step = make_train_step(tmodel, cfg, SH)
+    gt = torch.tensor(np.random.default_rng(0).random((H, W, 3)).astype(np.float32))
+    for _ in range(2):
+        step(state, _camera(), gt, torch.ones(3))
+    return tmodel, state, step, gt
+
+
+def test_checkpoint_of_gs_flame_restores_every_tensor_and_the_next_step(tmp_path):
+    tmodel, state, step, gt = _flame_train_state()
+    path = str(tmp_path / "chkpnt2.pt")
+    save_checkpoint(path, state)
+    fresh = make_train_state(tmodel.init_from_flame(torch.rand((80, 2, 3)), torch.rand((160, 3)),
+                                                    sh_degree=SH), optimization_config("gs_flame"))
+    restored = restore_checkpoint(path, fresh)
+    assert torch.equal(restored.consts["faces"], state.consts["faces"])
+    _assert_states_equal(restored, state)
+    _, m_a = step(state, _camera(), gt, torch.ones(3))
+    _, m_b = step(restored, _camera(), gt, torch.ones(3))
+    assert float(m_a["loss"]) == float(m_b["loss"])
+    _assert_states_equal(restored, state)
+
+
+def test_gs_flame_snapshots_load_across_packages(tmp_path):
+    from test_torch_flame import _flame_states
+
+    jmodel, tmodel, jstate, tstate = _flame_states()
+    faces = tstate["consts"]["faces"]
+    j_save_snapshot("gs_flame", jmodel, jstate, str(tmp_path / "jax"))
+    got = load_snapshot("gs_flame", str(tmp_path / "jax"), sh_degree=SH,
+                        consts={"faces": faces}, device="cpu")
+    for k, v in jstate["params"].items():
+        assert torch.equal(got["params"][k], torch.tensor(np.asarray(v))), k
+    save_snapshot("gs_flame", tmodel, tstate, str(tmp_path / "port"))
+    ref = j_load_snapshot("gs_flame", str(tmp_path / "port"), sh_degree=SH,
+                          consts=jstate["consts"])
+    for k, v in jstate["params"].items():
+        np.testing.assert_array_equal(np.asarray(ref["params"][k]), np.asarray(v), err_msg=k)
+    # both PLYs carry the same derived Gaussians
+    a = j_load_snapshot("gs", str(tmp_path / "jax"), sh_degree=SH)["params"]
+    b = j_load_snapshot("gs", str(tmp_path / "port"), sh_degree=SH)["params"]
+    for k in ("xyz", "scaling", "rotation"):
+        scale = float(np.abs(np.asarray(a[k])).max())
+        np.testing.assert_allclose(np.asarray(b[k]), np.asarray(a[k]), rtol=0,
+                                   atol=1e-5 * scale, err_msg=k)

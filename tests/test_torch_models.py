@@ -228,9 +228,33 @@ def test_points_roundtrip_renders_like_flat():
 
 
 def test_unported_models_raise():
-    for gs_type in ("gs_multi_mesh", "gs_flame"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_model(gs_type)
+    """A gs_type that is not in the registry; `gs_flame` is an instance
+    built from a rig, not a registry module."""
+    with pytest.raises(KeyError, match="unknown gs_type 'gs_bogus'"):
+        get_model("gs_bogus")
+    with pytest.raises(KeyError, match="needs a FLAME rig"):
+        get_model("gs_flame")
+    assert get_model("gs_multi_mesh").__name__.endswith("models.multi_mesh")
+
+
+def test_register_model_adds_a_gs_type():
+    """`register_model` makes a model instance, as `gs_flame`'s is, a
+    registry name."""
+    from gaussian_mesh_splatting_tpu_torch.models import (
+        MODEL_REGISTRY,
+        FlameGaussianModel,
+        register_model,
+    )
+    from gaussian_mesh_splatting_tpu_torch.models.flame import make_random_flame_like_rig
+
+    model = FlameGaussianModel(make_random_flame_like_rig(n_verts=16))
+    register_model("gs_flame", model)
+    try:
+        assert get_model("gs_flame") is model
+    finally:
+        del MODEL_REGISTRY["gs_flame"]
+    with pytest.raises(KeyError):
+        get_model("gs_flame")
 
 
 # ---------------------------------------------------------------- cov3d_precomp

@@ -2,7 +2,8 @@
 a tiny Blender_Mesh dataset and a `gs_mesh` snapshot written by the JAX
 package, rendered by both apps; the PNGs must agree within 1/255. The same
 for `gs`, `gs_flat` and `gs_points` on a Blender dataset with a small point
-cloud. Also: the CUDA backend refuses CPU tensors, the entry points refuse to run without a
+cloud, `gs_multi_mesh` on a COLMAP dataset with two meshes, and `gs_flame`
+on a Blender dataset with a FLAME pickle. Also: the CUDA backend refuses CPU tensors, the entry points refuse to run without a
 card unless asked for the CPU, and the port imports neither JAX nor the JAX
 package."""
 import json
@@ -204,10 +205,78 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(jax_model, tmp_path):
 
 
 def test_unported_gs_type_raises(jax_model, tmp_path):
+    """A gs_type that is not in the registry, and a gs_flame model whose
+    cfg_args names no FLAME pickle."""
     other = str(tmp_path / "gs_model")
     shutil.copytree(jax_model, other)
-    with pytest.raises(NotImplementedError, match="'gs_flame' is not ported yet"):
+    with pytest.raises(KeyError, match="unknown gs_type 'gs_bogus'"):
+        t_render_app.main(["-m", other, "--gs_type", "gs_bogus", "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs a FLAME model pickle"):
         t_render_app.main(["-m", other, "--gs_type", "gs_flame", "--device", "cpu"])
+
+
+def _render_both(model, gs_type, views):
+    """Render `model` (a JAX-written model directory) with both apps and
+    compare the PNGs: within 1/255, and not blank."""
+    port_model = model + "_port"
+    shutil.copytree(model, port_model)
+    j_render_app.main(["-m", model])
+    t_render_app.main(["-m", port_model, "--device", "cpu"])
+    for split, n in views:
+        for i in range(n):
+            rel = os.path.join(split, f"ours_{ITER}", f"renders_{gs_type}", f"{i:05d}.png")
+            a = np.asarray(Image.open(os.path.join(model, rel)), np.int32)
+            b = np.asarray(Image.open(os.path.join(port_model, rel)), np.int32)
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= 1, rel
+            assert a.std() > 1.0, rel
+
+
+def test_render_app_matches_jax_on_multi_mesh(tmp_path):
+    from gaussian_mesh_splatting_tpu.models import multi_mesh as jmm
+    from test_torch_colmap import make_colmap_dataset
+
+    root = make_colmap_dataset(str(tmp_path / "scene"), n_cams=9, size=24, with_meshes=True)
+    model = str(tmp_path / "model")
+    state = JScene(root, "gs_multi_mesh", eval=True, num_splats=3,
+                   shuffle=False).init_model_state(jmm, sh_degree=1)
+    rng = np.random.default_rng(3)
+    p = dict(state["params"])
+    p["f_dc"] = jnp.asarray(rng.random(p["f_dc"].shape, np.float32) * 2 - 0.5)
+    p["opacity"] = jnp.asarray(rng.standard_normal(p["opacity"].shape).astype(np.float32) + 1.5)
+    p["scale"] = [jnp.asarray(rng.uniform(0.8, 1.5, s.shape).astype(np.float32))
+                  for s in p["scale"]]
+    j_save_snapshot("gs_multi_mesh", jmm, {**state, "params": p}, snapshot_dir(model, ITER))
+    save_cfg(model, {"source_path": root, "gs_type": "gs_multi_mesh", "sh_degree": 1,
+                     "num_splats": 3, "white_background": False, "eval": True,
+                     "images": "images", "meshes": None})
+    _render_both(model, "gs_multi_mesh", [("train", 7), ("test", 2)])
+
+
+def test_render_app_matches_jax_on_flame(tmp_path):
+    from gaussian_mesh_splatting_tpu.models.flame import load_flame_pickle as j_load_flame
+    from gaussian_mesh_splatting_tpu.models.flame_gaussian import FlameGaussianModel
+    from test_torch_colmap import _tetrahedron
+    from test_torch_flame import head_rigs, write_blender_dataset, write_flame_pickle
+
+    root = write_blender_dataset(str(tmp_path / "scene"), radius=1.6)
+    verts, faces = _tetrahedron()
+    pkl = write_flame_pickle(str(tmp_path / "flame.pkl"),
+                             head_rigs(mesh=(verts * 0.2 - 0.05, faces))[0])
+    model = str(tmp_path / "model")
+    jmodel = FlameGaussianModel(j_load_flame(pkl))
+    state = JScene(root, "gs_flame", eval=True, flame_rig=jmodel.rig,
+                   shuffle=False).init_model_state(jmodel, sh_degree=1)
+    rng = np.random.default_rng(4)
+    p = dict(state["params"])
+    p["f_dc"] = jnp.asarray(rng.random(p["f_dc"].shape, np.float32) * 2 - 0.5)
+    p["opacity"] = jnp.asarray(rng.standard_normal(p["opacity"].shape).astype(np.float32))
+    p["flame_exp"] = jnp.asarray(rng.standard_normal(p["flame_exp"].shape).astype(np.float32))
+    p["flame_pose"] = jnp.asarray([[0.0, 0.1, 0.0, 0.2, 0.0, 0.0]], jnp.float32)
+    j_save_snapshot("gs_flame", jmodel, {**state, "params": p}, snapshot_dir(model, ITER))
+    save_cfg(model, {"source_path": root, "gs_type": "gs_flame", "sh_degree": 1,
+                     "white_background": True, "eval": True, "flame_model": pkl})
+    _render_both(model, "gs_flame", [("train", 2), ("test", 2)])
 
 
 def test_port_imports_no_jax():

@@ -4,8 +4,12 @@ cameras.json, input.ply, metrics, a snapshot) with a finite loss, and the
 port's render app reads the snapshot back; on a Blender dataset with a small
 point cloud it trains `gs` and `gs_flat` with densify events and an opacity
 reset, writes a checkpoint and resumes from it, and the render app renders
-the snapshot (a `gs_flat` one also as `gs_points`). Flags of paths that are
-not ported raise NotImplementedError."""
+the snapshot (a `gs_flat` one also as `gs_points`). On a COLMAP dataset with
+two meshes it trains `gs_multi_mesh` (checkpoint, resume, render) and `gs`;
+on a Blender dataset with a FLAME pickle it trains `gs_flame`, which the
+render app and `apps.render_flame` render. Flags of paths that are not
+ported raise NotImplementedError; a gs_type without what it needs raises
+ValueError."""
 import json
 import os
 
@@ -16,6 +20,7 @@ from PIL import Image
 
 from gaussian_mesh_splatting_tpu_torch import bench
 from gaussian_mesh_splatting_tpu_torch.apps import render as t_render_app
+from gaussian_mesh_splatting_tpu_torch.apps import render_flame as t_render_flame_app
 from gaussian_mesh_splatting_tpu_torch.apps import train as t_train_app
 from gaussian_mesh_splatting_tpu_torch.io.obj import save_obj
 from gaussian_mesh_splatting_tpu_torch.io.ply import store_point_cloud
@@ -171,20 +176,27 @@ def test_train_app_capacity_mult_sizes_the_buffer(points_dataset, tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--port", "6009"], "--port"),
     (["--profile_steps", "1:2"], "--profile_steps"),
-    (["--gs_type", "gs_multi_mesh"], "'gs_multi_mesh' is not ported yet"),
-    (["--gs_type", "gs_flame"], "'gs_flame' is not ported yet"),
+    # gs_multi_mesh on a Blender dataset: it needs a COLMAP one with meshes
+    (["--gs_type", "gs_multi_mesh"], "needs a COLMAP dataset with meshes"),
+    (["--gs_type", "gs_flame"], "needs a FLAME model pickle"),
     (["--detect_anomaly"], "--detect_anomaly"),
 ])
 def test_unported_flags_raise(dataset, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    # a flag of an unported path raises NotImplementedError; a gs_type
+    # without what it needs, ValueError
+    error = NotImplementedError if match.startswith("--") else ValueError
+    with pytest.raises(error, match=match):
         t_train_app.main(_argv(dataset, str(tmp_path / "m"), *extra))
 
 
-def test_unported_gs_type_raises(dataset, tmp_path):
-    argv = _argv(dataset, str(tmp_path / "m"))
-    argv[1] = "gs_multi_mesh"
-    with pytest.raises(NotImplementedError, match="'gs_multi_mesh' is not ported yet"):
-        t_train_app.main(argv)
+def test_unported_gs_type_raises(tmp_path):
+    """gs_multi_mesh on a COLMAP dataset without meshes."""
+    from test_torch_colmap import make_colmap_dataset
+
+    root = make_colmap_dataset(str(tmp_path / "scene"))
+    with pytest.raises(ValueError, match="no meshes"):
+        t_train_app.main(["--gs_type", "gs_multi_mesh", "-s", root, "-m", str(tmp_path / "m"),
+                          "--iterations", "1", "--device", "cpu"])
 
 
 def test_train_app_needs_a_card_unless_asked_for_cpu(dataset, tmp_path):
@@ -209,3 +221,94 @@ def test_bench_runs_on_cpu_and_refuses_zero_gradients(monkeypatch):
     monkeypatch.setattr(bench, "make_params", behind_camera)
     with pytest.raises(SystemExit, match="BENCH REFUSED"):
         bench.run(n=64, size=32, iters=1, device="cpu")
+
+
+# ---------------------------------------------------------------- COLMAP, FLAME
+
+@pytest.fixture(scope="module")
+def colmap_dataset(tmp_path_factory):
+    """A COLMAP dataset of 9 cameras (llffhold: 7 train, 2 test) with two
+    meshes in `sparse/0`."""
+    from test_torch_colmap import make_colmap_dataset
+
+    return make_colmap_dataset(str(tmp_path_factory.mktemp("colmap")), n_cams=9, size=24,
+                               with_meshes=True)
+
+
+def test_train_app_multi_mesh_checkpoints_resumes_and_renders(colmap_dataset, tmp_path, capsys):
+    model = str(tmp_path / "model")
+    argv = ["--gs_type", "gs_multi_mesh", "-s", colmap_dataset, "--eval", "--num_splats", "2",
+            "--sh_degree", "1", "--test_iterations", "1", "6", "--save_iterations", "6",
+            "--quiet", "--device", "cpu"]
+    res = t_train_app.main([*argv, "-m", model, "--iterations", "6",
+                            "--checkpoint_iterations", "4"])
+    assert len(res.losses) == 6 and np.isfinite(res.losses).all()
+    assert sorted(res.test_psnr) == [1, 6]
+    p = res.state.params
+    assert [len(p[k]) for k in ("vertices", "alpha", "scale")] == [2, 2, 2]
+    assert p["f_dc"].shape == (2 * 4 * 2, 1, 3)
+    assert all(float(a.grad.abs().max()) > 0 for a in p["alpha"])
+    snap = os.path.join(model, "point_cloud", "iteration_6")
+    assert sorted(os.listdir(snap)) == ["model_params.npz", "point_cloud.ply"]
+    resumed = t_train_app.main([*argv, "-m", str(tmp_path / "resumed"), "--iterations", "6",
+                                "--start_checkpoint", os.path.join(model, "chkpnt4.pt")])
+    assert len(resumed.losses) == 2 and resumed.state.step == 6
+    assert "at step 4" in capsys.readouterr().out
+    t_render_app.main(["-m", model, "--device", "cpu"])
+    for split, n in (("train", 7), ("test", 2)):
+        pngs = sorted(os.listdir(os.path.join(model, split, "ours_6", "renders_gs_multi_mesh")))
+        assert len(pngs) == n
+    img = np.asarray(Image.open(os.path.join(model, "test", "ours_6", "renders_gs_multi_mesh",
+                                             "00000.png")))
+    assert img.shape == (24, 24, 3) and img.std() > 1.0
+
+
+def test_train_app_gs_on_colmap(colmap_dataset, tmp_path):
+    """`gs` from the COLMAP point cloud (50 points), with one densify event."""
+    res = t_train_app.main(_points_argv("gs", colmap_dataset, str(tmp_path / "m"), 4))
+    assert len(res.losses) == 4 and np.isfinite(res.losses).all()
+    assert res.state.alive.shape == (150,) and [e["iteration"] for e in res.densify_events] == [4]
+    assert os.path.exists(os.path.join(colmap_dataset, "sparse/0/points3D.ply"))
+
+
+@pytest.fixture(scope="module")
+def flame_setup(tmp_path_factory):
+    """A Blender dataset whose cameras look at a FLAME-like head, and the
+    head's rig written as a FLAME pickle."""
+    from test_torch_colmap import _tetrahedron
+    from test_torch_flame import head_rigs, write_blender_dataset, write_flame_pickle
+
+    base = tmp_path_factory.mktemp("flame")
+    verts, faces = _tetrahedron()
+    # a tetrahedral head, 4 faces: 400 Gaussians at 100 splats per face
+    jr, _ = head_rigs(mesh=(verts * 0.2 - 0.05, faces))
+    return (write_blender_dataset(str(base / "scene"), radius=1.6),
+            write_flame_pickle(str(base / "flame.pkl"), jr))
+
+
+def test_train_app_gs_flame_and_render_flame(flame_setup, tmp_path):
+    dataset, pkl = flame_setup
+    model = str(tmp_path / "model")
+    res = t_train_app.main(["--gs_type", "gs_flame", "-s", dataset, "-m", model,
+                            "--flame_model", pkl, "--eval", "--sh_degree", "1",
+                            "--white_background", "--iterations", "3", "--test_iterations", "3",
+                            "--save_iterations", "3", "--quiet", "--device", "cpu"])
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+    p = res.state.params
+    assert p["alpha"].shape == (4, 100, 3)  # 100 splats per face by default
+    for k in ("flame_shape", "flame_exp", "flame_pose", "flame_neck_pose", "flame_trans",
+              "vertices_enlargement"):
+        assert torch.isfinite(p[k].grad).all() and float(p[k].grad.abs().max()) > 0, k
+    t_render_app.main(["-m", model, "--device", "cpu"])
+    png = os.path.join(model, "test", "ours_3", "renders_gs_flame", "00000.png")
+    assert np.asarray(Image.open(png)).std() > 1.0
+    t_render_flame_app.main(["-m", model, "--animated", "--frames", "4", "--dump_obj",
+                             "--device", "cpu"])
+    out = os.path.join(model, "renders_flame_animated")
+    names = sorted(os.listdir(out))
+    assert names == [f"{i:05d}.png" for i in range(4)] + [f"head_{i:05d}.obj" for i in range(4)]
+    frames = [np.asarray(Image.open(os.path.join(out, n)), np.int32) for n in names[:4]]
+    assert frames[0].shape == (24, 24, 3)
+    assert np.abs(frames[1] - frames[0]).max() > 0  # the jaw and expression moved
+    t_render_flame_app.main(["-m", model, "--device", "cpu"])
+    assert os.listdir(os.path.join(model, "renders_flame")) == ["00000.png"]
