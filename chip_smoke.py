@@ -74,11 +74,26 @@ Phases (any failure exits nonzero; nothing is caught):
      longest tile alone (the critical path: a tile's walk is serial), launch
      by launch and with the launches queued back to back (`cuda_ms_queued`:
      the device time without the host's share of a single launch);
-  7. print the kernels line (with each kernel's launches on the render path
-     and on each training path and `apps.render_flame`, its times and
-     bounds at the `gs_mesh`, the `gs` and the `gs_flame` inputs, each bound
-     from the operations that this run's data needs), the card's name and
-     power limit, and last the device line.
+  7. drive evaluation and editing through the user's entry points: LPIPS
+     (VGG16 weights drawn from a seed, written as the documented .npz and
+     named by $GMS_LPIPS_WEIGHTS) on two 800x800 GT views on the card
+     against the CPU (1e-4 relative; identical images score 0);
+     `apps.render --skip_train` and `apps.metrics` of the trained `gs_mesh`
+     model (finite SSIM, PSNR, LPIPS; PSNR within 0.5 dB of the train app's
+     last test PSNR); `apps.full_eval --gs_type gs_mesh` over eight symlinks
+     to the dataset; `apps.train --detect_anomaly` beside a plain run of the
+     same steps (step times); `apps.train --profile_steps` (the trace names
+     both kernels once a traced step; the device's busy share of the
+     window); `apps.train --port` with a viewer thread that asks for one
+     800x800 frame; `apps.render_animated` and `apps.render_mesh_morph`
+     (frame 0 equals apps.render's view within 1/255); the pseudomesh
+     pipeline save -> dummy -> retarget -> render, and animate, on the
+     `gs_flat` snapshot; every path's launches counted from 0 and checked;
+  8. print the kernels line (with each kernel's launches on the render path,
+     on each training path, `apps.render_flame` and each path of phase 7,
+     its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
+     inputs, each bound from the operations that this run's data needs),
+     the card's name and power limit, and last the device line.
 Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 """
 from __future__ import annotations
@@ -156,6 +171,14 @@ FLAME_TEST_ITERS = (1, 100)
 FLAME_FRAMES = 3
 FLAME_PARAMS = ("flame_shape", "flame_exp", "flame_pose", "flame_neck_pose", "flame_trans",
                 "vertices_enlargement")
+# phase 7: evaluation and editing on the gs_mesh and gs_flat models
+LPIPS_SEED = 45
+FULL_EVAL_ITERS = 30  # per scene of the eight-scene suite
+ANOMALY_ITERS = 20
+PROFILE_STEPS = (10, 15)
+GUI_ITERS = 10
+ANIMATED_FRAMES, MORPH_FRAMES, SOUP_FRAMES = 10, 5, 5
+DUMMY_ALPHA = 0.25  # the pseudomesh dummy's circumradius bound, scene units
 
 
 def log(msg: str) -> None:
@@ -397,6 +420,18 @@ def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(fn(), its time in ms between two CUDA events): one call, no warm-up."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def composite_inputs(bag, cam, sh_degree):
     """(projection, binning, the composite's arguments as the plain versions
     take them, the kernels' own layout inputs as the render path makes them)."""
@@ -542,14 +577,15 @@ def composite_op_counts(args, nc) -> tuple[dict, "torch.Tensor"]:
 
 def compare_composite(label: str, args, layout, time_it: bool, plain_reps=(10, 1)) -> dict:
     """Kernel vs plain version on the same inputs, on the card. `plain_reps`:
-    the (reps, warm-up calls) of the plain version's timing."""
+    the (reps, warm-up calls) of the plain version's timing; with (1, 0) the
+    plain call of the comparison is the one timed."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
         composite_fwd_cuda, composite_fwd_plain)
 
     planes_k, nc_k = composite_fwd_cuda(*args, **layout)
-    planes_p, nc_p = composite_fwd_plain(*args)
+    (planes_p, nc_p), plain_once_ms = timed_once(lambda: composite_fwd_plain(*args))
     torch.cuda.synchronize()
     err_img = (planes_k[:4] - planes_p[:4]).abs().max().item()  # r, g, b, T (= 1 - alpha)
     d_scale = max(planes_p[4].abs().max().item(), 1e-6)
@@ -574,8 +610,8 @@ def compare_composite(label: str, args, layout, time_it: bool, plain_reps=(10, 1
         res.update(
             ms=cuda_ms(lambda: composite_fwd_cuda(*args, **layout), reps=20),
             queued_ms=cuda_ms_queued(lambda: composite_fwd_cuda(*args, **layout), reps=20),
-            plain_ms=cuda_ms(lambda: composite_fwd_plain(*args), reps=plain_reps[0],
-                             warmup=plain_reps[1]),
+            plain_ms=plain_once_ms if plain_reps == (1, 0) else cuda_ms(
+                lambda: composite_fwd_plain(*args), reps=plain_reps[0], warmup=plain_reps[1]),
             **{k: v for k, v in ops.items() if k.startswith("fwd_")}, bytes=bytes_moved,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
@@ -653,7 +689,8 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
     """B2 vs its plain version on the same inputs and cotangents, on the
     card: a seeded normal cotangent of all five planes, and the photometric
     loss's cotangent against `teacher` (white background). `plain_reps`: the
-    (reps, warm-up calls) of the plain version's timing; `ops`: the
+    (reps, warm-up calls) of the plain version's timing (with (1, 0) the
+    photometric comparison's plain call is the one timed); `ops`: the
     operation counts of `compare_composite` on the same inputs, where it has
     made them (the replay is long on a large case)."""
     import torch
@@ -673,7 +710,7 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
     res = {"case": label, "pairs": int(args[5].shape[0]), "ok": True}
     for name, cot in cots.items():
         g_k = composite_bwd_cuda(*args, planes[3], nc, cot, **layout)
-        g_p = composite_bwd_plain(*args, planes[3], nc, cot)
+        g_p, plain_once_ms = timed_once(lambda: composite_bwd_plain(*args, planes[3], nc, cot))
         torch.cuda.synchronize()
         scale = g_p.abs().amax(dim=0)
         err = (g_k - g_p).abs().amax(dim=0)
@@ -702,8 +739,9 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
             ms=cuda_ms(lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
             queued_ms=cuda_ms_queued(
                 lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
-            plain_ms=cuda_ms(lambda: composite_bwd_plain(*args, planes[3], nc, cot),
-                             reps=plain_reps[0], warmup=plain_reps[1]),
+            plain_ms=plain_once_ms if plain_reps == (1, 0) else cuda_ms(
+                lambda: composite_bwd_plain(*args, planes[3], nc, cot),
+                reps=plain_reps[0], warmup=plain_reps[1]),
             **{k: v for k, v in ops.items() if k.startswith("bwd_")}, bytes=bytes_moved,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
@@ -951,6 +989,394 @@ def kernel_cases(ns, dev) -> dict:
             "dense": composite_inputs(dense_scene(4000, 2, dev), cam_dense, 3)[2:],
             "empty": composite_inputs(culled, cam_small, 3)[2:],
         }
+
+
+def counted(fn):
+    """Run fn() with both kernels' launch counts set to 0 just before it;
+    returns (its result, wall seconds to a synchronized end, B1 launches,
+    B2 launches)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, rc.composite_fwd_cuda.launches,
+            rc.composite_bwd_cuda.launches)
+
+
+def expect_launches(label: str, fwd: int, bwd: int, want_fwd: int, want_bwd: int) -> None:
+    log(f"    {label}: composite_fwd launches {fwd}, composite_bwd launches {bwd}")
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        raise SystemExit(f"{label}: expected {want_fwd} forward and {want_bwd} backward launches")
+
+
+def read_png(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        img = np.asarray(im, dtype=np.int32)
+    if img.shape != (SIZE, SIZE, 3) or img.std() < 1.0:
+        raise SystemExit(f"bad frame {path}: shape {img.shape}, std {img.std():.3f}")
+    return img
+
+
+def timed_train(argv: list[str]):
+    """apps.train.main(argv) with each train step timed on the host clock
+    between two synchronizations (the step the app builds, through the
+    train package's `make_train_step`). Returns (result, step ms list, wall
+    s, B1 launches, B2 launches)."""
+    import torch
+
+    import gaussian_mesh_splatting_tpu_torch.train as train_pkg
+    from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
+
+    real_make, step_ms = train_pkg.make_train_step, []
+
+    def timed_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        return timed
+
+    train_pkg.make_train_step = timed_make
+    try:
+        res, wall, fwd, bwd = counted(lambda: train_app.main(argv))
+    finally:
+        train_pkg.make_train_step = real_make
+    return res, step_ms, wall, fwd, bwd
+
+
+def device_busy_share(trace_path: str) -> dict:
+    """From a torch.profiler Chrome trace: the composite kernels' events, and
+    the share of the traced window (first to last event of any kind) in
+    which the device ran a kernel, a copy or a fill (the union of their
+    intervals)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    busy, end = 0.0, lo
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {
+        "window_ms": (hi - lo) / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / (hi - lo),
+        "device_events": len(device),
+        "kernel_events": len(kernels),
+        "kernel_ms": sum(float(e.get("dur", 0)) for e in kernels) / 1e3,
+        "composite_fwd_kernels": sum("composite_fwd_kernel" in e["name"] for e in kernels),
+        "composite_bwd_kernels": sum("composite_bwd_kernel" in e["name"] for e in kernels),
+    }
+
+
+def viewer_message(cam, train: bool = True) -> dict:
+    """The SIBR viewer's request for one frame of `cam` (a port Camera):
+    its matrices row-major in glm's convention (the transposes)."""
+    return {
+        "resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+        "fov_x": 2 * float(np.arctan(float(cam.tanfovx))),
+        "fov_y": 2 * float(np.arctan(float(cam.tanfovy))),
+        "z_near": float(cam.znear), "z_far": float(cam.zfar), "shs_python": False,
+        "rot_scale_python": False, "keep_alive": True, "scaling_modifier": 1.0,
+        "view_matrix": cam.world_view.cpu().numpy().T.reshape(-1).astype(float).tolist(),
+        "view_projection_matrix": cam.full_proj.cpu().numpy().T.reshape(-1).astype(float).tolist(),
+    }
+
+
+def gui_viewer(port: int, message: dict, n_bytes: int, got: dict):
+    """A viewer thread: connect (the trainer binds the port at its start),
+    ask for one frame, read the frame and the source path into `got`, close.
+    Every socket operation has a deadline."""
+    import socket
+    import struct
+    import threading
+
+    def run():
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                c = socket.create_connection(("127.0.0.1", port), timeout=120)
+                break
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+
+        def recv(n):
+            out = b""
+            while len(out) < n:
+                chunk = c.recv(n - len(out))
+                if not chunk:
+                    raise ConnectionError("the trainer closed the connection")
+                out += chunk
+            return out
+
+        with c:
+            payload = json.dumps(message).encode("utf-8")
+            c.sendall(struct.pack("<I", len(payload)) + payload)
+            got["frame"] = recv(n_bytes)
+            (n,) = struct.unpack("<I", recv(4))
+            got["path"] = recv(n).decode()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def eval_and_edit(ns, dev, last_test_psnr: float) -> dict:
+    """Phase 7: LPIPS on the card; apps.render --skip_train + apps.metrics and
+    apps.full_eval; apps.train with --detect_anomaly, --profile_steps and
+    --port; apps.render_animated, apps.render_mesh_morph and the pseudomesh
+    pipeline. Returns the launch counts of each path ({"fwd": ..., "bwd":
+    ...}) and the phase's numbers."""
+    import socket
+
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.apps import full_eval as full_eval_app
+    from gaussian_mesh_splatting_tpu_torch.apps import metrics as metrics_app
+    from gaussian_mesh_splatting_tpu_torch.apps import pseudomesh as pseudomesh_app
+    from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
+    from gaussian_mesh_splatting_tpu_torch.apps import render_animated as animated_app
+    from gaussian_mesh_splatting_tpu_torch.apps import render_mesh_morph as morph_app
+    from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
+    from gaussian_mesh_splatting_tpu_torch.apps.network_gui import NetworkGUI
+    from gaussian_mesh_splatting_tpu_torch.io.obj import load_obj, save_obj
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.ops import lpips as lpips_mod
+    from gaussian_mesh_splatting_tpu_torch.renderer import render
+
+    fwd, bwd, out = {}, {}, {}
+    mesh_argv = ["--gs_type", "gs_mesh", "-s", ns.data_dir, "--num_splats", str(NUM_SPLATS),
+                 "--sh_degree", str(SH_DEGREE), "--white_background", "--test_iterations", "-1"]
+
+    # (a) LPIPS: VGG16-shaped weights from a seed, the scorer on the card
+    # (with cuDNN's TF32 left on outside it) against the CPU
+    weights = os.path.join(WORK, "lpips_synth.npz")
+    np.savez(weights, **lpips_mod.synthetic_arrays(np.random.default_rng(LPIPS_SEED)))
+    os.environ["GMS_LPIPS_WEIGHTS"] = weights
+    a, b = (ns.scene.train_cameras[i][1] for i in (0, 1))
+    params = {d: lpips_mod.load_params(device=d) for d in (dev, torch.device("cpu"))}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            ga, gb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+            card = float(lpips_mod.lpips(ga, gb, params[dev]))
+            same = float(lpips_mod.lpips(ga, ga, params[dev]))
+            cpu = float(lpips_mod.lpips(torch.as_tensor(a), torch.as_tensor(b),
+                                        params[torch.device("cpu")]))
+            lpips_ms = cuda_ms(lambda: lpips_mod.lpips(ga, gb, params[dev]), reps=5, warmup=1)
+        tf32_restored = torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["lpips"] = {"card": card, "cpu": cpu, "rel_diff": abs(card - cpu) / abs(cpu),
+                    "identical_images": same, "ms_800x800": lpips_ms}
+    log(f"[7a] LPIPS (VGG16, seeded weights; train views 0 and 1, 800x800): "
+        f"{json.dumps(out['lpips'])}")
+    if not (out["lpips"]["rel_diff"] <= 1e-4 and same == 0.0 and card > 0 and tf32_restored):
+        raise SystemExit("LPIPS on the card disagrees with the CPU (1e-4 relative), scores "
+                         "identical images above 0 or left cuDNN's TF32 switch changed")
+
+    # (b) the trained gs_mesh model's test views, scored
+    _, _, fwd["render_metrics"], bwd["render_metrics"] = counted(
+        lambda: render_app.main(["-m", ns.train_dir, "--skip_train"]))
+    expect_launches("apps.render --skip_train", fwd["render_metrics"], bwd["render_metrics"],
+                    N_TEST, 0)
+    _, metrics_s, f_m, b_m = counted(lambda: metrics_app.main(["-m", ns.train_dir]))
+    with open(os.path.join(ns.train_dir, "results_gs_mesh.json")) as f:
+        scores = json.load(f)[f"ours_{TRAIN_ITERS}"]["gs_mesh"]
+    out["metrics"] = {**scores, "train_app_test_psnr": last_test_psnr, "seconds": metrics_s}
+    log(f"[7b] apps.metrics on the gs_mesh model ({N_TEST} test views): "
+        f"{json.dumps(out['metrics'])}")
+    if not all(np.isfinite(scores[k]) for k in ("SSIM", "PSNR", "LPIPS")) or (f_m, b_m) != (0, 0):
+        raise SystemExit("apps.metrics: SSIM, PSNR and LPIPS must be finite")
+    if abs(scores["PSNR"] - last_test_psnr) > 0.5:
+        raise SystemExit("apps.metrics' PSNR is over 0.5 dB from the train app's last test PSNR")
+
+    # (c) apps.full_eval over a suite of symlinks to the gs_mesh dataset
+    suite, eval_dir = os.path.join(WORK, "nerf_synthetic"), os.path.join(WORK, "full_eval")
+    os.makedirs(suite)
+    for name in full_eval_app.NERF_SYNTHETIC:
+        os.symlink(ns.data_dir, os.path.join(suite, name))
+    _, full_eval_s, fwd["full_eval"], bwd["full_eval"] = counted(lambda: full_eval_app.main(
+        ["--gs_type", "gs_mesh", "-ns", suite, "-o", eval_dir,
+         "--iterations", str(FULL_EVAL_ITERS)]))
+    n_scenes = len(full_eval_app.NERF_SYNTHETIC)
+    per_scene = {}
+    for name in full_eval_app.NERF_SYNTHETIC:
+        with open(os.path.join(eval_dir, name, "results_gs_mesh.json")) as f:
+            per_scene[name] = json.load(f)[f"ours_{FULL_EVAL_ITERS}"]["gs_mesh"]
+    out["full_eval"] = {"seconds": full_eval_s, "scenes": per_scene}
+    log(f"[7c] apps.full_eval --gs_type gs_mesh, {n_scenes} scenes x {FULL_EVAL_ITERS} steps "
+        f"in {full_eval_s:.1f} s: {json.dumps(per_scene)}")
+    if not all(np.isfinite(v) for r in per_scene.values() for v in r.values()):
+        raise SystemExit("apps.full_eval: a scene's scores are not finite")
+    expect_launches("apps.full_eval", fwd["full_eval"], bwd["full_eval"],
+                    n_scenes * (FULL_EVAL_ITERS + N_TEST), n_scenes * FULL_EVAL_ITERS)
+
+    # (d) --detect_anomaly against a plain run of the same steps
+    steps = {}
+    for label, extra in (("plain", []), ("detect_anomaly", ["--detect_anomaly"])):
+        res, step_ms, _, f_d, b_d = timed_train(
+            [*mesh_argv, "-m", os.path.join(WORK, f"anomaly_{label}"),
+             "--iterations", str(ANOMALY_ITERS), *extra])
+        if (len(res.losses) != ANOMALY_ITERS or not np.isfinite(res.losses).all()
+                or torch.is_anomaly_enabled()):
+            raise SystemExit(f"apps.train {label}: not {ANOMALY_ITERS} finite losses, or "
+                             "anomaly mode outlived the run")
+        expect_launches(f"apps.train {label}", f_d, b_d, ANOMALY_ITERS, ANOMALY_ITERS)
+        fwd[f"{label}_train"], bwd[f"{label}_train"] = f_d, b_d
+        steps[label] = statistics.median(step_ms[2:])
+    out["detect_anomaly"] = {"step_ms_plain": steps["plain"],
+                             "step_ms_detect_anomaly": steps["detect_anomaly"],
+                             "ratio": steps["detect_anomaly"] / steps["plain"]}
+    log(f"[7d] gs_mesh step, median of steps 3-{ANOMALY_ITERS} (host clock between "
+        f"synchronizations): {json.dumps(out['detect_anomaly'])}")
+
+    # (e) --profile_steps: a torch.profiler trace of steps 10..15
+    lo, hi = PROFILE_STEPS
+    profile_dir = os.path.join(WORK, "profile_model")
+    _, _, fwd["profile_train"], bwd["profile_train"] = counted(lambda: train_app.main(
+        [*mesh_argv, "-m", profile_dir, "--iterations", str(hi), "--profile_steps", f"{lo}:{hi}"]))
+    expect_launches("apps.train --profile_steps", fwd["profile_train"], bwd["profile_train"],
+                    hi, hi)
+    out["profile"] = device_busy_share(os.path.join(profile_dir, "profile", "trace.json"))
+    log(f"[7e] trace of steps {lo}..{hi} (torch.profiler, CUPTI): {json.dumps(out['profile'])}")
+    n_traced = hi - lo + 1
+    if (out["profile"]["composite_fwd_kernels"], out["profile"]["composite_bwd_kernels"]) != \
+            (n_traced, n_traced):
+        raise SystemExit(f"the trace must name both composite kernels, {n_traced} times each")
+
+    # (f) the network GUI: one 800x800 frame with train=True; the loop's
+    # first poll waits for the viewer thread (up to 120 s)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    got = {}
+    viewer = gui_viewer(port, viewer_message(ns.scene.test_cameras[0][0]), SIZE * SIZE * 3, got)
+    real_try_connect, polls = NetworkGUI.try_connect, []
+
+    def first_poll_waits(self, timeout=0.0):
+        polls.append(timeout)
+        return real_try_connect(self, 120.0 if len(polls) == 1 else timeout)
+
+    NetworkGUI.try_connect = first_poll_waits
+    try:
+        _, _, fwd["gui_train"], bwd["gui_train"] = counted(lambda: train_app.main(
+            [*mesh_argv, "-m", os.path.join(WORK, "gui_model"), "--iterations", str(GUI_ITERS),
+             "--port", str(port)]))
+    finally:
+        NetworkGUI.try_connect = real_try_connect
+    viewer.join(timeout=120)
+    frame = np.frombuffer(got.get("frame", b""), np.uint8)
+    log(f"[7f] apps.train --port {port}: {frame.size} frame bytes (std {frame.std():.2f}), "
+        f"source path {got.get('path')!r}")
+    if (viewer.is_alive() or frame.size != SIZE * SIZE * 3 or frame.std() < 1.0
+            or got.get("path") != ns.data_dir):
+        raise SystemExit("the GUI viewer did not get its 800x800 frame and the source path")
+    expect_launches("apps.train --port", fwd["gui_train"], bwd["gui_train"], GUI_ITERS + 1,
+                    GUI_ITERS)
+
+    # (g) the mesh animated and morphed; frame 0 (t = 0) is apps.render's view
+    ref = read_png(os.path.join(ns.train_dir, "test", f"ours_{TRAIN_ITERS}", "renders_gs_mesh",
+                                "00000.png"))
+    v, f = load_obj(os.path.join(ns.data_dir, "mesh.obj"))
+    target = os.path.join(WORK, "morph_target.obj")
+    save_obj(target, v + np.array([0.2, 0.0, 0.1], np.float32), f)
+    out["edit"] = {}
+    for key, app, argv, frames, sub in (
+            ("render_animated", animated_app, ["--deform", "fly"], ANIMATED_FRAMES, "animated_fly"),
+            ("render_mesh_morph", morph_app, ["--target_mesh", target], MORPH_FRAMES,
+             "mesh_morph")):
+        _, wall, fwd[key], bwd[key] = counted(lambda: app.main(
+            ["-m", ns.train_dir, *argv, "--frames", str(frames)]))
+        expect_launches(f"apps.{key}", fwd[key], bwd[key], frames, 0)
+        imgs = [read_png(os.path.join(ns.train_dir, sub, f"{i:05d}.png")) for i in range(frames)]
+        diff0 = int(np.abs(imgs[0] - ref).max())
+        moved = int(max(np.abs(img - imgs[0]).max() for img in imgs[1:]))
+        out["edit"][key] = {"frames": frames, "app_ms_per_frame": 1e3 * wall / frames,
+                            "frame0_vs_render_max_diff_255": diff0, "max_move_255": moved}
+        log(f"[7g] apps.{key} (wall, start-up included): {json.dumps(out['edit'][key])}")
+        if diff0 > 1 or moved == 0:
+            raise SystemExit(f"apps.{key}: frame 0 must equal apps.render's view within 1/255 "
+                             "and a later frame must differ")
+    # the animation's frame loop alone (the app's own, start-up excluded) and
+    # the render inside it (to_bag from the deformed faces + render, CUDA events)
+    cfg, state, scene = animated_app.load_mesh_model(ns.train_dir, -1, dev)
+    cam = scene.test_cameras[0][0]
+    verts = state["params"]["vertices"].detach().cpu().numpy()
+    frames = [animated_app.transform_fly(verts, i / (ANIMATED_FRAMES - 1))
+              for i in range(ANIMATED_FRAMES)]
+    _, loop_s, _, _ = counted(lambda: animated_app.render_frames(
+        os.path.join(WORK, "frame_loop"), frames, cfg, state, cam, dev))
+    faces = state["consts"]["faces"].long()
+    tris = torch.as_tensor(frames[1], device=dev)[faces]
+    with torch.no_grad():
+        render_ms = cuda_ms(lambda: render(mesh_model.to_bag(state, triangles=tris), cam,
+                                           torch.ones(3, device=dev), sh_degree=SH_DEGREE),
+                            reps=10)
+    out["edit"]["frame_loop"] = {"ms_per_frame": 1e3 * loop_s / ANIMATED_FRAMES,
+                                 "render_ms": render_ms}
+    log(f"[7g] render_animated's frame loop, 800x800 (to_bag, render, copy to the host, PNG): "
+        f"{json.dumps(out['edit']['frame_loop'])}")
+
+    # (h) the pseudomesh pipeline on the gs_flat snapshot
+    flat = ns.flat_train_dir
+    tri_path = os.path.join(flat, "pseudomesh", "triangles.npz")
+    dummy, edited = os.path.join(WORK, "pm_dummy.obj"), os.path.join(WORK, "pm_edited.obj")
+    moved_soup = os.path.join(WORK, "pm_retargeted.npz")
+    t0 = time.perf_counter()
+    pseudomesh_app.main(["save", "-m", flat, "--sh_degree", str(SH_DEGREE)])
+    pseudomesh_app.main(["dummy", "--triangles", tri_path, "--output", dummy,
+                         "--alpha", str(DUMMY_ALPHA)])
+    dv, df = load_obj(dummy)
+    save_obj(edited, dv + np.array([0.1, 0.0, 0.0], np.float32), df)
+    pseudomesh_app.main(["retarget", "--triangles", tri_path, "--estimated_mesh", dummy,
+                         "--edited_mesh", edited, "--output", moved_soup])
+    host_s = time.perf_counter() - t0
+    tris, tris2 = np.load(tri_path)["triangles"], np.load(moved_soup)["triangles"]
+    shift = float(np.median((tris2 - tris)[..., 0]))
+    _, _, f_r, b_r = counted(lambda: pseudomesh_app.main(
+        ["render", "-m", flat, "--triangles", moved_soup]))
+    _, anim_s, f_a, b_a = counted(lambda: pseudomesh_app.main(
+        ["animate", "-m", flat, "--frames", str(SOUP_FRAMES)]))
+    fwd["pseudomesh"], bwd["pseudomesh"] = f_r + f_a, b_r + b_a
+    for sub, n in (("renders_soup", N_TEST), ("soup_animated", SOUP_FRAMES)):
+        names = sorted(os.listdir(os.path.join(flat, sub)))
+        if names != [f"{i:05d}.png" for i in range(n)]:
+            raise SystemExit(f"pseudomesh: expected {n} PNGs in {sub}, got {names}")
+        for name in names:
+            read_png(os.path.join(flat, sub, name))
+    out["pseudomesh"] = {"triangles": int(tris.shape[0]), "dummy_vertices": int(dv.shape[0]),
+                         "dummy_faces": int(df.shape[0]), "median_x_shift": shift,
+                         "save_dummy_retarget_s": host_s,
+                         "animate_app_ms_per_frame": 1e3 * anim_s / SOUP_FRAMES}
+    log(f"[7h] pseudomesh save -> dummy -> retarget -> render, animate: "
+        f"{json.dumps(out['pseudomesh'])}")
+    if not (len(df) > 0 and abs(shift - 0.1) < 1e-3):
+        raise SystemExit("pseudomesh: the dummy mesh has no faces or the retarget did not move "
+                         "the soup with its mesh")
+    expect_launches("pseudomesh render + animate", fwd["pseudomesh"], bwd["pseudomesh"],
+                    N_TEST + SOUP_FRAMES, 0)
+    return {"fwd": fwd, "bwd": bwd, **out}
 
 
 def main() -> int:
@@ -1512,7 +1938,13 @@ def main() -> int:
     log(f"    bench (100k Gaussians, 800x800, SH 3, fwd+bwd+update): {json.dumps(bench_res)}")
     log(f"    script so far (wall): {time.perf_counter() - t_script:.1f} s")
 
-    # ---- 7. output lines ----------------------------------------------------
+    # ---- 7. evaluation and editing through the user's entry points ---------
+    t0 = time.perf_counter()
+    phase7 = eval_and_edit(ns, dev, result.test_psnr[TEST_ITERS[-1]])
+    log(f"    phase 7: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 8. output lines ----------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -1527,6 +1959,7 @@ def main() -> int:
         "launches_colmap_gs_train": colmap_gs_fwd_launches,
         "launches_flame_train": flame_fwd_launches,
         "launches_render_flame": render_flame_launches,
+        **{f"launches_{k}": v for k, v in phase7["fwd"].items()},
         "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"],
                            flame_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
@@ -1553,6 +1986,7 @@ def main() -> int:
         "launches_colmap_gs_train": colmap_gs_bwd_launches,
         "launches_flame_train": flame_bwd_launches,
         "launches_render_flame": 0,
+        **{f"launches_{k}": v for k, v in phase7["bwd"].items()},
         "max_abs_err": max(full_bwd["photometric"]["max_abs_err"],
                            gs_bwd["photometric"]["max_abs_err"],
                            flame_bwd["photometric"]["max_abs_err"]),

@@ -26,17 +26,28 @@ versions.
 the split samples, a `torch.Generator` on the run's device: a CPU run and a
 CUDA run draw different samples from one seed.
 
-Flags whose paths are not ported raise NotImplementedError: `--port`,
-`--profile_steps`, `--detect_anomaly`, `--shard`/`--data_parallel` with more
-than one device.
+The GT images stay on the device when they fit a quarter of its free memory
+(`gt_budget`), else they stay in pinned host memory and each step copies its
+image over (`place_gt`). The loss is read on the host at iteration 1 and
+every 100th (every iteration under `--detect_anomaly`, which also turns on
+`torch.autograd`'s anomaly mode for the run); before each step that reads it
+the loop keeps a detached copy of the step's inputs, which a non-finite loss
+dumps to `{model}/debug_dump_<it>.npz` before the run raises.
+`--profile_steps START:STOP` traces steps START..STOP with `torch.profiler`
+into `{model}/profile/trace.json`; `--port` serves the SIBR viewer's frames
+from the training loop (`apps/network_gui.py`, on `--ip`).
+`--shard`/`--data_parallel` with more than one device raise
+NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import random
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -58,23 +69,78 @@ def checkpoint_path(model_path: str, iteration: int) -> str:
     return os.path.join(model_path, f"chkpnt{iteration}.pt")
 
 
-def dump_debug_state(model_path: str, it: int, tstate, cam) -> str:
-    """Dump the params, alive mask, consts and camera matrices after a
-    non-finite loss, to replay the step offline."""
+@dataclasses.dataclass
+class StepInputs:
+    """A detached copy of what a train step reads from its TrainState."""
+
+    step: int
+    params: dict
+    consts: dict
+    alive: torch.Tensor
+
+
+def copy_step_inputs(tstate) -> StepInputs:
+    def copy(v):
+        return [t.detach().clone() for t in v] if isinstance(v, list) else v.detach().clone()
+
+    return StepInputs(
+        step=tstate.step,
+        params={k: copy(v) for k, v in tstate.params.items()},
+        consts={k: copy(v) for k, v in tstate.consts.items()},
+        alive=tstate.alive.clone(),
+    )
+
+
+def dump_debug_state(model_path: str, it: int, inputs: StepInputs, cam) -> str:
+    """Dump a step's inputs (params, consts, alive mask, step count) and its
+    camera matrices after a non-finite loss, to replay the step offline."""
     out = os.path.join(model_path, f"debug_dump_{it}.npz")
-    flat = {"step": np.asarray(tstate.step)}
+    flat = {"step": np.asarray(inputs.step)}
     for group in ("params", "consts"):
-        for k, v in getattr(tstate, group).items():
+        for k, v in getattr(inputs, group).items():
             if isinstance(v, list):  # one tensor per mesh
-                flat.update({f"{group}/{k}/{i}": t.detach().cpu().numpy()
-                             for i, t in enumerate(v)})
+                flat.update({f"{group}/{k}/{i}": t.cpu().numpy() for i, t in enumerate(v)})
             else:
-                flat[f"{group}/{k}"] = v.detach().cpu().numpy()
-    flat["alive"] = tstate.alive.cpu().numpy()
+                flat[f"{group}/{k}"] = v.cpu().numpy()
+    flat["alive"] = inputs.alive.cpu().numpy()
     for attr in ("world_view", "full_proj", "cam_center"):
         flat[f"camera/{attr}"] = getattr(cam, attr).cpu().numpy()
     np.savez(out, **flat)
     return out
+
+
+def gt_budget(device: torch.device) -> float:
+    """Bytes of GT images that may live on `device`: a quarter of the card's
+    free memory; no bound for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] / 4
+    return float("inf")
+
+
+def place_gt(images: list[np.ndarray], device: torch.device,
+             budget: float) -> tuple[list[torch.Tensor], bool]:
+    """The GT images as tensors, and whether they are on `device`: there if
+    their bytes fit `budget`, else on the host (pinned for a CUDA device),
+    from where each step copies its image."""
+    if sum(g.nbytes for g in images) <= budget:
+        return [torch.as_tensor(g, device=device) for g in images], True
+    host = [torch.as_tensor(g) for g in images]
+    if device.type == "cuda":
+        host = [t.pin_memory() for t in host]
+    return host, False
+
+
+def parse_profile_steps(spec: str | None) -> tuple[int, int] | None:
+    """'START:STOP' -> (START, STOP), 1 <= START <= STOP; ValueError otherwise."""
+    if spec is None:
+        return None
+    parts = spec.split(":")
+    if len(parts) != 2:
+        raise ValueError(f"--profile_steps takes START:STOP, got {spec!r}")
+    lo, hi = int(parts[0]), int(parts[1])
+    if not 1 <= lo <= hi:
+        raise ValueError(f"--profile_steps needs 1 <= START <= STOP, got {spec!r}")
+    return lo, hi
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,7 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     p.add_argument("--start_checkpoint", default=None)
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--detect_anomaly", action="store_true")
+    p.add_argument("--detect_anomaly", action="store_true",
+                   help="torch.autograd anomaly mode for the run and a loss check every "
+                        "step; a non-finite loss dumps the step's inputs and raises")
     p.add_argument("--save_xyz", action="store_true",
                    help="save raw Gaussian centers to <model>/xyz/<it>.npy every 5000 iters")
     p.add_argument("--seed", type=int, default=0)
@@ -120,21 +188,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pair_capacity", type=int, default=None,
                    help="initial rasterizer pair-list size (default: exact, no overflow); "
                         "doubles whenever a step drops pairs")
+    p.add_argument("--ip", default="127.0.0.1", help="network GUI host")
     p.add_argument("--port", type=int, default=0, help="network GUI port (0 disables)")
-    p.add_argument("--profile_steps", default=None)
+    p.add_argument("--profile_steps", default=None,
+                   help="START:STOP: trace these steps into <model>/profile/trace.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def _refuse_unported(args, n_devices: int) -> None:
-    unported = {
-        "--port": args.port,
-        "--profile_steps": args.profile_steps,
-        "--detect_anomaly": args.detect_anomaly,
-    }
-    for flag, value in unported.items():
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet")
     if (args.shard != "none" or args.data_parallel) and n_devices > 1:
         raise NotImplementedError("multi-device training (--shard, --data_parallel) "
                                   "is not ported yet")
@@ -142,6 +204,17 @@ def _refuse_unported(args, n_devices: int) -> None:
 
 def main(argv=None) -> TrainResult:
     args = build_parser().parse_args(argv)
+    profile_range = parse_profile_steps(args.profile_steps)
+    with contextlib.ExitStack() as cleanup:
+        if args.detect_anomaly:
+            # anomaly mode is global in the process: restored however the run ends
+            cleanup.callback(torch.autograd.set_detect_anomaly, torch.is_anomaly_enabled())
+            torch.autograd.set_detect_anomaly(True)
+        return _train(args, profile_range, cleanup)
+
+
+def _train(args, profile_range: tuple[int, int] | None,
+           cleanup: contextlib.ExitStack) -> TrainResult:
     from ..device import resolve_device
     from ..io.checkpoint import restore_checkpoint, save_checkpoint, snapshot_dir
     from ..io.config_io import save_cfg
@@ -158,7 +231,8 @@ def main(argv=None) -> TrainResult:
         psnr,
         reset_opacity,
     )
-    from ..utils.profiling import MetricsLogger
+    from ..utils.profiling import MetricsLogger, profiler_trace
+    from .network_gui import NetworkGUI, image_to_bytes, parse_camera
 
     device = resolve_device(args.device)
     # float32 stays float32 on the card: no TF32 in matmuls or convolutions
@@ -182,6 +256,10 @@ def main(argv=None) -> TrainResult:
     _refuse_unported(args, n_devices)
     if args.pair_capacity is not None and args.pair_capacity <= 0:
         raise ValueError("--pair_capacity must be positive")
+    gui = None
+    if args.port:
+        gui = NetworkGUI(args.ip, args.port)
+        cleanup.callback(gui.close)
 
     scene = Scene(
         args.source_path, args.gs_type, model_path=args.model_path,
@@ -224,8 +302,12 @@ def main(argv=None) -> TrainResult:
     rng = random.Random(args.seed)
     np_rng = np.random.default_rng(args.seed)
     densify_rng = torch.Generator(device=device).manual_seed(args.seed)
-    # every GT image on the device up front (800x800 float32 is 7.7 MB)
-    cams = [(c, torch.as_tensor(g, device=device)) for c, g in scene.train_cameras]
+    gts, gt_on_device = place_gt([g for _, g in scene.train_cameras], device,
+                                 gt_budget(device))
+    if not gt_on_device:
+        print(f"the {len(gts)} GT images exceed a quarter of the device's free memory: "
+              "they stay in host memory and each step copies its image over")
+    cams = [(c, g) for (c, _), g in zip(scene.train_cameras, gts)]
     order: list[int] = []
     logger = MetricsLogger(args.model_path, tensorboard=True)
     if args.save_xyz:
@@ -237,11 +319,40 @@ def main(argv=None) -> TrainResult:
     t_start = t_boundary = time.time()
     it_boundary = start_iter = tstate.step
     ema_loss = None
+    profiling = cleanup.enter_context(contextlib.ExitStack())
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     for it in range(start_iter + 1, cfg.iterations + 1):
         if args.save_xyz and (it % 5000 == 1 or it == cfg.iterations):
             with torch.no_grad():
                 xyz = model.to_bag(tstate.model_state()).xyz
             np.save(os.path.join(args.model_path, "xyz", f"{it}.npy"), xyz.cpu().numpy())
+        if profile_range and it == profile_range[0]:
+            sync()
+            profiling.enter_context(profiler_trace(os.path.join(args.model_path, "profile")))
+        # GUI poll: while a viewer is connected, serve its frames; go on to
+        # a train step once it asks for training (unchecking "train" in the
+        # viewer pauses the optimization while the frames stay live)
+        while gui is not None and gui.try_connect():
+            try:
+                msg = gui.receive()
+                parsed = parse_camera(msg, device) if msg else None
+                do_training = True
+                img_bytes = None
+                if parsed is not None:
+                    gui_cam, do_training, _keep_alive, _scaling_modifier = parsed
+                    img_bytes = image_to_bytes(eval_fn(tstate, gui_cam, bg_color).cpu().numpy())
+                gui.send(img_bytes, args.source_path)
+                if do_training:
+                    break
+            except ConnectionError:  # the viewer closed its connection
+                gui.disconnect()
+            except (OSError, ValueError, KeyError):  # a socket fault or a malformed request
+                traceback.print_exc()
+                gui.disconnect()
         if it % 1000 == 0:
             one_up_sh_degree(tstate, args.sh_degree)
         if cfg.random_background:
@@ -252,8 +363,28 @@ def main(argv=None) -> TrainResult:
             order = list(range(len(cams)))
             rng.shuffle(order)
         cam, gt = cams[order.pop()]
-        tstate, metrics = step_fn(tstate, cam, gt, bg)
+        gt = gt.to(device, non_blocking=True)
+        # the loss is read on the host after this step: keep its inputs for
+        # the dump (the step updates the state in place)
+        reads_loss = args.detect_anomaly or it == 1 or it % 100 == 0
+        inputs = copy_step_inputs(tstate) if reads_loss else None
+        try:
+            tstate, metrics = step_fn(tstate, cam, gt, bg)
+        except RuntimeError as e:  # anomaly mode raises inside the backward
+            if not args.detect_anomaly:
+                raise
+            dump = dump_debug_state(args.model_path, it, inputs, cam)
+            raise RuntimeError(f"train step {it} failed under --detect_anomaly; step inputs "
+                               f"dumped to {dump}") from e
         losses.append(metrics["loss"])
+        if args.detect_anomaly and not np.isfinite(float(metrics["loss"])):
+            dump = dump_debug_state(args.model_path, it, inputs, cam)
+            raise RuntimeError(f"non-finite loss at iteration {it}; step inputs dumped to {dump}")
+        if profile_range and it == profile_range[1]:
+            sync()
+            profiling.close()
+            print(f"[it {it}] profiled steps {profile_range[0]}..{it} into "
+                  f"{os.path.join(args.model_path, 'profile')}")
 
         if metrics["overflow"] > 0 and pair_capacity is not None:
             pair_capacity *= 2
@@ -299,8 +430,10 @@ def main(argv=None) -> TrainResult:
                       f"psnr {float(metrics['psnr']):.2f} iter {iter_ms:.1f}ms "
                       f"({time.time() - t_start:.0f}s)")
             if not np.isfinite(loss):
-                dump = dump_debug_state(args.model_path, it, tstate, cam)
-                raise RuntimeError(f"non-finite loss at iteration {it}; state dumped to {dump}")
+                dump = dump_debug_state(args.model_path, it, inputs, cam)
+                raise RuntimeError(f"non-finite loss at iteration {it}; step inputs dumped to "
+                                   f"{dump} (re-run with --detect_anomaly to catch the step "
+                                   "that produced it)")
             if it % 100 == 0:
                 logger.scalar("train_loss_patches/total_loss", loss, it)
                 logger.scalar("train_loss_patches/l1_loss", float(metrics["l1"]), it)

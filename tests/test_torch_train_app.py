@@ -7,11 +7,19 @@ reset, writes a checkpoint and resumes from it, and the render app renders
 the snapshot (a `gs_flat` one also as `gs_points`). On a COLMAP dataset with
 two meshes it trains `gs_multi_mesh` (checkpoint, resume, render) and `gs`;
 on a Blender dataset with a FLAME pickle it trains `gs_flame`, which the
-render app and `apps.render_flame` render. Flags of paths that are not
-ported raise NotImplementedError; a gs_type without what it needs raises
-ValueError."""
+render app and `apps.render_flame` render. A non-finite loss dumps the
+inputs of its step (with and without `--detect_anomaly`, whose anomaly mode
+ends with the run); the GT images go to the device only within a byte
+budget; `--profile_steps` writes a `torch.profiler` trace; `--port` serves
+the SIBR viewer's protocol (the protocol itself against the JAX package's
+`apps/network_gui`). A malformed flag or a gs_type without what it needs
+raises ValueError, a GUI address in use OSError."""
 import json
 import os
+import socket
+import struct
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -173,18 +181,28 @@ def test_train_app_capacity_mult_sizes_the_buffer(points_dataset, tmp_path):
     assert res.densify_events == []
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--port", "6009"], "--port"),
-    (["--profile_steps", "1:2"], "--profile_steps"),
+@pytest.fixture
+def busy_port():
+    """A port on 127.0.0.1 that a listening socket holds: it cannot be bound."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        s.listen()
+        yield s.getsockname()[1]
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    # --port on an address that cannot be bound
+    (["--ip", "127.0.0.1", "--port", "BUSY"], OSError, "Address already in use"),
+    (["--profile_steps", "5"], ValueError, "START:STOP"),
     # gs_multi_mesh on a Blender dataset: it needs a COLMAP one with meshes
-    (["--gs_type", "gs_multi_mesh"], "needs a COLMAP dataset with meshes"),
-    (["--gs_type", "gs_flame"], "needs a FLAME model pickle"),
-    (["--detect_anomaly"], "--detect_anomaly"),
+    (["--gs_type", "gs_multi_mesh"], ValueError, "needs a COLMAP dataset with meshes"),
+    (["--gs_type", "gs_flame"], ValueError, "needs a FLAME model pickle"),
+    (["--profile_steps", "3:2"], ValueError, "START <= STOP"),
 ])
-def test_unported_flags_raise(dataset, tmp_path, extra, match):
-    # a flag of an unported path raises NotImplementedError; a gs_type
-    # without what it needs, ValueError
-    error = NotImplementedError if match.startswith("--") else ValueError
+def test_unported_flags_raise(dataset, tmp_path, busy_port, extra, error, match):
+    # what a flag refuses: an address in use, a malformed step range; a
+    # gs_type without what it needs
+    extra = [str(busy_port) if x == "BUSY" else x for x in extra]
     with pytest.raises(error, match=match):
         t_train_app.main(_argv(dataset, str(tmp_path / "m"), *extra))
 
@@ -312,3 +330,333 @@ def test_train_app_gs_flame_and_render_flame(flame_setup, tmp_path):
     assert np.abs(frames[1] - frames[0]).max() > 0  # the jaw and expression moved
     t_render_flame_app.main(["-m", model, "--device", "cpu"])
     assert os.listdir(os.path.join(model, "renders_flame")) == ["00000.png"]
+
+
+# ------------------------------------------- the debug dump, anomaly mode, GT
+
+def _poison_from(monkeypatch, poisoned_it, seen):
+    """Wrap the train step so that the loss of iteration `poisoned_it` and
+    after is NaN; record the state before and after that step in `seen`, and
+    whether anomaly mode was on during the steps."""
+    import gaussian_mesh_splatting_tpu_torch.train as train_pkg
+
+    real_make = train_pkg.make_train_step
+
+    def params_of(tstate):
+        return {k: v.detach().clone() for k, v in tstate.params.items()}
+
+    def poisoned_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def wrapped(tstate, cam, gt, bg):
+            it = tstate.step + 1
+            seen.setdefault("anomaly", []).append(torch.is_anomaly_enabled())
+            if it == poisoned_it:
+                seen["before"] = {"step": tstate.step, "params": params_of(tstate),
+                                  "alive": tstate.alive.clone()}
+            tstate, metrics = step(tstate, cam, gt, bg)
+            if it == poisoned_it:
+                seen["after"] = {"step": tstate.step, "params": params_of(tstate)}
+            if it >= poisoned_it:
+                metrics = dict(metrics, loss=torch.tensor(float("nan")))
+            return tstate, metrics
+
+        return wrapped
+
+    monkeypatch.setattr(train_pkg, "make_train_step", poisoned_make)
+
+
+@pytest.mark.parametrize("anomaly", [False, True], ids=["plain", "detect_anomaly"])
+def test_nan_dump_holds_the_step_inputs(dataset, tmp_path, monkeypatch, anomaly):
+    """A non-finite loss dumps the inputs of its step: the params and step
+    count before the in-place update, exactly. Without --detect_anomaly the
+    loss is read at iteration 1 and every 100th; with it, every iteration."""
+    poisoned_it = 2 if anomaly else 1
+    seen = {}
+    _poison_from(monkeypatch, poisoned_it, seen)
+    model = str(tmp_path / "m")
+    with pytest.raises(RuntimeError, match=f"non-finite loss at iteration {poisoned_it}; "
+                                           "step inputs dumped"):
+        t_train_app.main(_argv(dataset, model, *(["--detect_anomaly"] if anomaly else [])))
+    assert not torch.is_anomaly_enabled()
+    assert seen["anomaly"] == [anomaly] * poisoned_it
+    before, after = seen["before"], seen["after"]
+    with np.load(os.path.join(model, f"debug_dump_{poisoned_it}.npz")) as blob:
+        assert int(blob["step"]) == before["step"] == poisoned_it - 1 == after["step"] - 1
+        assert sorted(k for k in blob.files if k.startswith("params/")) == \
+            sorted(f"params/{k}" for k in before["params"])
+        for k, v in before["params"].items():
+            np.testing.assert_array_equal(blob[f"params/{k}"], v.numpy(), err_msg=k)
+        np.testing.assert_array_equal(blob["alive"], before["alive"].numpy())
+        assert "consts/faces" in blob and "camera/world_view" in blob
+        # the step moved the params: the dump is not the state after it
+        assert any(not np.array_equal(blob[f"params/{k}"], v.numpy())
+                   for k, v in after["params"].items())
+
+
+def test_detect_anomaly_mode_ends_with_the_run(dataset, tmp_path, monkeypatch):
+    seen = {}
+    _poison_from(monkeypatch, ITERS + 1, seen)  # never poisons
+    res = t_train_app.main(_argv(dataset, str(tmp_path / "m"), "--detect_anomaly"))
+    assert len(res.losses) == ITERS and np.isfinite(res.losses).all()
+    assert seen["anomaly"] == [True] * ITERS
+    assert not torch.is_anomaly_enabled()
+
+
+@pytest.mark.parametrize("fits", [True, False], ids=["on_device", "on_host"])
+def test_gt_placement_follows_the_budget(fits):
+    """The GT images go to the device when their bytes fit the budget, else
+    they stay on the host (the meta device stands in for a card)."""
+    images = [np.random.default_rng(i).random((8, 6, 3)).astype(np.float32) for i in range(3)]
+    total = sum(g.nbytes for g in images)
+    gts, on_device = t_train_app.place_gt(images, torch.device("meta"),
+                                          total if fits else total - 1)
+    assert on_device is fits
+    assert [g.device.type for g in gts] == ["meta" if fits else "cpu"] * 3
+    assert all(g.shape == (8, 6, 3) for g in gts)
+    if not fits:
+        for g, ref in zip(gts, images):
+            np.testing.assert_array_equal(g.numpy(), ref)
+        assert gts[0].to("meta", non_blocking=True).device.type == "meta"
+    assert t_train_app.gt_budget(torch.device("cpu")) == float("inf")
+
+
+def test_profile_steps_write_a_trace(dataset, tmp_path):
+    model = str(tmp_path / "m")
+    res = t_train_app.main(_argv(dataset, model, "--profile_steps", "2:3"))
+    assert len(res.losses) == ITERS
+    with open(os.path.join(model, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    # steps 2 and 3, each one Adam step
+    assert sum(e.get("name") == "Optimizer.step#Adam.step" for e in events) == 2
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+
+
+# ---------------------------------------------------------------- network GUI
+
+def _viewer_message(width=32, height=16, train=True, keep_alive=True, cam=None):
+    """A SIBR viewer request; `cam` (a port Camera) sets the view, else the
+    JAX test's identity view 4 units out."""
+    if cam is None:
+        view = np.eye(4)
+        view[3, 2] = 4.0  # glm's row-vector convention: the translation in row 3
+        proj, fovx, fovy = np.eye(4), 0.8, 0.8
+    else:
+        view, proj = cam.world_view.numpy().T, cam.full_proj.numpy().T
+        fovx, fovy = 2 * np.arctan(float(cam.tanfovx)), 2 * np.arctan(float(cam.tanfovy))
+    return {
+        "resolution_x": width, "resolution_y": height, "train": train,
+        "fov_y": fovy, "fov_x": fovx, "z_near": 0.01, "z_far": 100.0,
+        "shs_python": False, "rot_scale_python": False, "keep_alive": keep_alive,
+        "scaling_modifier": 1.0,
+        "view_matrix": np.asarray(view, np.float64).reshape(-1).tolist(),
+        "view_projection_matrix": np.asarray(proj, np.float64).reshape(-1).tolist(),
+    }
+
+
+def _send_msg(sock, msg: dict):
+    payload = json.dumps(msg).encode("utf-8")
+    sock.sendall(struct.pack("<I", len(payload)) + payload)
+
+
+def _recv_exact(sock, n):
+    out = b""
+    while len(out) < n:
+        chunk = sock.recv(n - len(out))
+        assert chunk, "server closed early"
+        out += chunk
+    return out
+
+
+def _read_reply(sock, n_image_bytes):
+    img = _recv_exact(sock, n_image_bytes)
+    (slen,) = struct.unpack("<I", _recv_exact(sock, 4))
+    return img, _recv_exact(sock, slen).decode()
+
+
+@pytest.fixture
+def gui():
+    from gaussian_mesh_splatting_tpu_torch.apps.network_gui import NetworkGUI
+
+    server = NetworkGUI("127.0.0.1", 0)
+    yield server
+    server.close()
+
+
+def _viewer_thread(port, script):
+    """Run `script(sock)` on a viewer connection in a thread; the socket has
+    a 20 s deadline on every operation."""
+    def run():
+        with socket.create_connection(("127.0.0.1", port), timeout=20) as c:
+            script(c)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def test_gui_request_response_roundtrip(gui):
+    from gaussian_mesh_splatting_tpu_torch.apps import network_gui
+
+    width, height = 32, 16
+    results = {}
+
+    def script(c):
+        _send_msg(c, _viewer_message(width, height, train=False))
+        results["img"], results["path"] = _read_reply(c, width * height * 3)
+
+    t = _viewer_thread(gui.listener.getsockname()[1], script)
+    assert gui.try_connect(timeout=20)
+    cam, do_training, keep_alive, scaling_mod = network_gui.parse_camera(gui.receive(), "cpu")
+    assert (do_training, keep_alive, scaling_mod) == (False, True, 1.0)
+    assert (cam.width, cam.height) == (width, height)
+    # the glm row-vector matrices are transposed back
+    np.testing.assert_allclose(cam.world_view.numpy()[2, 3], 4.0)
+    img = np.zeros((height, width, 3), np.float32)
+    img[..., 0] = 1.0  # a red frame
+    gui.send(network_gui.image_to_bytes(img), "/data/scene")
+    t.join(timeout=20)
+    assert not t.is_alive()
+    got = np.frombuffer(results["img"], np.uint8).reshape(height, width, 3)
+    assert (got[..., 0] == 255).all() and (got[..., 1:] == 0).all()
+    assert results["path"] == "/data/scene"
+
+
+def test_gui_zero_resolution_parses_to_none(gui):
+    """A 0x0 request (the viewer's handshake) builds no camera; the reply is
+    the source path alone."""
+    from gaussian_mesh_splatting_tpu_torch.apps import network_gui
+
+    results = {}
+
+    def script(c):
+        _send_msg(c, _viewer_message(0, 0))
+        results["path"] = _read_reply(c, 0)[1]
+
+    t = _viewer_thread(gui.listener.getsockname()[1], script)
+    assert gui.try_connect(timeout=20)
+    assert network_gui.parse_camera(gui.receive(), "cpu") is None
+    gui.send(None, "/data/scene")
+    t.join(timeout=20)
+    assert not t.is_alive() and results["path"] == "/data/scene"
+
+
+def test_gui_do_training_false_pauses(gui):
+    """With train=False the poll keeps serving frames without returning to
+    training; train=True lets it go on: four requests, one poll."""
+    from gaussian_mesh_splatting_tpu_torch.apps import network_gui
+
+    size = 8
+    served = []
+
+    def script(c):
+        for train in (False, False, False, True):
+            _send_msg(c, _viewer_message(size, size, train=train))
+            _read_reply(c, size * size * 3)
+
+    t = _viewer_thread(gui.listener.getsockname()[1], script)
+    assert gui.try_connect(timeout=20)
+    while gui.try_connect():  # apps.train's poll, with a grey frame
+        parsed = network_gui.parse_camera(gui.receive(), "cpu")
+        served.append(parsed[1])
+        gui.send(network_gui.image_to_bytes(np.full((size, size, 3), 0.5, np.float32)), "src")
+        if parsed[1]:
+            break
+    t.join(timeout=20)
+    assert not t.is_alive() and served == [False, False, False, True]
+
+
+def test_gui_parse_camera_matches_jax():
+    from gaussian_mesh_splatting_tpu.apps import network_gui as j_gui
+    from gaussian_mesh_splatting_tpu_torch.apps import network_gui
+    from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+
+    rng = np.random.default_rng(3)
+    rot, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    cam = make_camera(rot, rng.standard_normal(3), 0.7, 0.5, 48, 40, device="cpu")
+    msg = json.loads(json.dumps(_viewer_message(48, 40, cam=cam)))
+    got, ref = network_gui.parse_camera(msg, "cpu"), j_gui.parse_camera(msg)
+    assert got[1:] == ref[1:]
+    for attr in ("world_view", "full_proj", "cam_center", "tanfovx", "tanfovy", "znear", "zfar"):
+        np.testing.assert_array_equal(getattr(got[0], attr).numpy(),
+                                      np.asarray(getattr(ref[0], attr)), err_msg=attr)
+    assert (got[0].width, got[0].height) == (ref[0].width, ref[0].height) == (48, 40)
+    # the round trip through the viewer's convention gives the camera back
+    np.testing.assert_allclose(got[0].world_view.numpy(), cam.world_view.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got[0].cam_center.numpy(), cam.cam_center.numpy(), atol=1e-5)
+
+
+def test_train_app_serves_the_gui(dataset, tmp_path, monkeypatch):
+    """apps.train --port: a viewer that asks for one frame with train=True
+    gets the render of a test camera and the source path; training goes on.
+    The loop's first poll waits for the viewer (up to 30 s), so the frame
+    does not depend on when the viewer thread runs."""
+    from gaussian_mesh_splatting_tpu_torch.apps.network_gui import NetworkGUI
+    from gaussian_mesh_splatting_tpu_torch.scene import Scene
+
+    polls = []
+    real_try_connect = NetworkGUI.try_connect
+
+    def first_poll_waits(self, timeout=0.0):
+        polls.append(timeout)
+        return real_try_connect(self, 30.0 if len(polls) == 1 else timeout)
+
+    monkeypatch.setattr(NetworkGUI, "try_connect", first_poll_waits)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cam = Scene(dataset, "gs_mesh", eval=True, shuffle=False, device="cpu").test_cameras[0][0]
+    results = {}
+
+    def viewer():
+        deadline = time.monotonic() + 60
+        while True:  # the trainer binds the port at its start
+            try:
+                c = socket.create_connection(("127.0.0.1", port), timeout=20)
+                break
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
+        with c:
+            _send_msg(c, _viewer_message(32, 32, train=True, cam=cam))
+            results["img"], results["path"] = _read_reply(c, 32 * 32 * 3)
+
+    t = threading.Thread(target=viewer, daemon=True)
+    t.start()
+    res = t_train_app.main(_argv(dataset, str(tmp_path / "m"), "--port", str(port)))
+    t.join(timeout=20)
+    assert not t.is_alive()
+    assert len(res.losses) == ITERS and np.isfinite(res.losses).all()
+    assert results["path"] == dataset
+    img = np.frombuffer(results["img"], np.uint8).reshape(32, 32, 3)
+    assert img.std() > 1.0  # the mesh on white, not a constant frame
+
+
+# ------------------------------------------------------------------ utilities
+
+def test_step_timer_and_safe_state(capsys):
+    import random
+    import sys
+
+    from gaussian_mesh_splatting_tpu_torch.utils.general import safe_state
+    from gaussian_mesh_splatting_tpu_torch.utils.profiling import StepTimer
+
+    timer = StepTimer(beta=0.5)
+    for pause in (0.02, 0.0):
+        with timer:
+            time.sleep(pause)
+    assert timer.ema_ms >= 0.5 * 20.0  # beta times the first 20 ms step, at least
+    stdout = sys.stdout
+    try:
+        safe_state(silent=False, seed=3)
+        draws = (random.random(), np.random.random(), float(torch.rand(())))
+        print("a line")
+        safe_state(silent=True, seed=3)
+        assert (random.random(), np.random.random(), float(torch.rand(()))) == draws
+        print("dropped")
+    finally:
+        sys.stdout = stdout
+    out = capsys.readouterr().out
+    assert "a line [" in out and "dropped" not in out
