@@ -89,8 +89,31 @@ Phases (any failure exits nonzero; nothing is caught):
      (frame 0 equals apps.render's view within 1/255); the pseudomesh
      pipeline save -> dummy -> retarget -> render, and animate, on the
      `gs_flat` snapshot; every path's launches counted from 0 and checked;
-  8. print the kernels line (with each kernel's launches on the render path,
-     on each training path, `apps.render_flame` and each path of phase 7,
+  8. drive the parallel modes (`parallel/`), their ranks spawned as processes
+     that share the one card over gloo (NCCL refuses two ranks on one GPU),
+     on the gs_mesh scene at full width: (a) the teacher's view rendered
+     row-sharded at world 2, bit-equal to the unsharded render; (b) the same
+     Gaussian-sharded, within PAR_SATURATION_TOL (the saturated pixels
+     counted); (c)-(e) the first step of the rows, gaussians, camera-DP
+     (world 2) and composed 2x2 (world 4) steps against the unsharded step
+     (`make_train_step`) on the card: gradients within PAR_GRAD_TOL * max|g|
+     per key (DP and composed: the mean of two cameras' steps), statistics
+     within PAR_STATS_TOL, loss 1e-4 relative; (f) PAR_STEPS steps of each
+     (the 1-D modes through `apps.train --data_parallel / --shard rows /
+     --shard gaussians` at world 2): the loss falls, the params are
+     bit-identical on every rank, B1 and B2 launch once a step a rank; (g)
+     step times (CUDA events, per rank), the gathers' and the gradient
+     all-reduce's times, `measure_scaling` at widths 1 and 2; B1 alone on
+     each row band beside the whole image; (h) one rank on NCCL: (a), (b)
+     and 20 steps of rows, gaussians and DP, their collectives on NCCL in a
+     group of one, held against the unsharded render and step; then a
+     world-1 `torchrun` launch of `apps.train --shard gaussians` (a group of
+     one trains as one device); (i) the `fastio` extension's
+     points3D.bin and PLY reads equal the numpy readers' byte for byte, and
+     their times;
+  9. print the kernels line (with each kernel's launches on the render path,
+     on each training path, `apps.render_flame` and each path of phase 7 (per
+     rank: phase 8),
      its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
      inputs, each bound from the operations that this run's data needs),
      the card's name and power limit, and last the device line.
@@ -99,6 +122,7 @@ Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -179,6 +203,16 @@ PROFILE_STEPS = (10, 15)
 GUI_ITERS = 10
 ANIMATED_FRAMES, MORPH_FRAMES, SOUP_FRAMES = 10, 5, 5
 DUMMY_ALPHA = 0.25  # the pseudomesh dummy's circumradius bound, scene units
+# phase 8: the parallel modes, their ranks spawned as processes that share
+# the one card (cuda:0) over gloo (NCCL refuses two ranks on one GPU)
+PAR_WORLD = 2
+PAR_STEPS = 20  # steps of each mode: apps.train at world 2, the composed step at world 4
+PAR_TIMED = 10  # steps of each mode timed with CUDA events after the compared first step
+PAR_GRAD_TOL = 5e-4  # x max|g| per param key, against the unsharded step's
+PAR_STATS_TOL = 1e-5  # grad_accum, absolute; denom and max_radii exact
+PAR_SATURATION_TOL = 2e-3  # Gaussian-sharded render vs unsharded, per pixel
+SATURATED_T = 1.5e-4  # a pixel whose final T is at most this has saturated
+TORCHRUN_ITERS = 5
 
 
 def log(msg: str) -> None:
@@ -432,9 +466,10 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def composite_inputs(bag, cam, sh_degree):
+def composite_inputs(bag, cam, sh_degree, row_band=None):
     """(projection, binning, the composite's arguments as the plain versions
-    take them, the kernels' own layout inputs as the render path makes them)."""
+    take them, the kernels' own layout inputs as the render path makes them);
+    `row_band` bins only those tile rows, as a row-sharded rank does."""
     from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE, pack_attributes
@@ -442,7 +477,8 @@ def composite_inputs(bag, cam, sh_degree):
     proj = preprocess(bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam,
                       shs=bag.shs, sh_degree=sh_degree, alive=bag.alive, radius_mode="tight")
     n_ty, n_tx = -(-cam.height // TILE), -(-cam.width // TILE)
-    binning = bin_gaussians(proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx)
+    binning = bin_gaussians(proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
+                            row_band=row_band)
     args = (proj.mean2d.contiguous(), proj.conic.contiguous(), proj.opacity.contiguous(),
             proj.color.contiguous(), proj.depth.contiguous(), binning.pair_gaussian,
             binning.tile_start, binning.tile_end, cam.height, cam.width)
@@ -1379,6 +1415,525 @@ def eval_and_edit(ns, dev, last_test_psnr: float) -> dict:
     return {"fwd": fwd, "bwd": bwd, **out}
 
 
+# ---- phase 8: the parallel modes (spawned ranks on the one card) and io/native
+
+@functools.lru_cache(maxsize=None)
+def rank_scene(dev):
+    """What a phase-8 rank loads, as apps.train would: the gs_mesh dataset
+    (cameras, GT on the card), the fresh student's state and the seed-42
+    teacher's bag (the render path's)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.scene import Scene
+
+    scene = Scene(os.path.join(WORK, "scene"), "gs_mesh", eval=True, num_splats=NUM_SPLATS,
+                  shuffle=False, device=dev)
+    init = scene.init_model_state(mesh_model, SH_DEGREE)
+    with torch.no_grad():
+        teacher = mesh_model.to_bag(randomize_state(init, seed=42))
+    gts = [torch.as_tensor(g, device=dev) for _, g in scene.train_cameras]
+    return scene, init, teacher, gts
+
+
+def launch_counts(reset: bool = False) -> tuple[int, int]:
+    """(B1, B2) launches of this process since the last reset."""
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+
+    counts = (rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches)
+    if reset:
+        rc.composite_fwd_cuda.launches = rc.composite_bwd_cuda.launches = 0
+    return counts
+
+
+def params_checksum(params: dict) -> int:
+    """The params' bits summed as int64 words, position-weighted: equal on
+    two ranks when their params are bit-identical (up to collisions)."""
+    import torch
+
+    words = torch.cat([p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+                       for p in params.values()])
+    weights = torch.arange(1, words.numel() + 1, device=words.device) % 65521
+    return int((words * weights).sum())
+
+
+def p8_render(rank, world, dev):
+    """(a), (b): the teacher's view 0 row-sharded and Gaussian-sharded
+    against the unsharded render on this rank; B1 launches per render; the
+    renders' times (CUDA events, median of 5)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
+    from gaussian_mesh_splatting_tpu_torch.parallel import (
+        create_mesh, render_gaussian_sharded, render_row_sharded)
+
+    scene, _, teacher, _ = rank_scene(dev)
+    cam, bg, mesh = scene.train_cameras[0][0], torch.ones(3, device=dev), create_mesh()
+    out = {}
+    with torch.no_grad():
+        def full():
+            return rasterize_cuda(teacher.xyz, teacher.scaling, teacher.rotation,
+                                  teacher.opacity, cam, bg=bg, shs=teacher.shs,
+                                  sh_degree=SH_DEGREE, alive=teacher.alive)
+
+        ref = full()
+        out["saturated_pixels"] = int(((1.0 - ref.alpha) <= SATURATED_T).sum())
+        out["unsharded_ms"] = cuda_ms(full, reps=5)
+        for shard, fn in (("rows", render_row_sharded), ("gaussians", render_gaussian_sharded)):
+            def sharded(fn=fn):
+                return fn(teacher, cam, bg, mesh, sh_degree=SH_DEGREE)
+
+            launch_counts(reset=True)
+            torch.cuda.synchronize()
+            img = sharded()
+            torch.cuda.synchronize()
+            out[shard] = {"bit_equal": bool(torch.equal(img, ref.image)),
+                          "max_abs_err": float((img - ref.image).abs().max()),
+                          "launches": launch_counts(), "ms": cuda_ms(sharded, reps=5)}
+    return out
+
+
+def p8_steps(rank, world, dev, *, mode):
+    """(c)-(g): PAR_STEPS steps of `mode` from the fresh student: the first
+    step's loss, statistics and (rank 0) gradients; the other steps' times
+    (CUDA events); the launches of all; the losses; every rank's params
+    checksum. mode: data (rank r takes camera r), rows / gaussians (camera
+    0), composed ((world / 2) x 2 mesh, Gaussians sharded; model group d
+    takes camera d); later steps take the next cameras."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.parallel import (
+        create_mesh, create_mesh2d, make_dp_train_step, make_sharded_train_step)
+    from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
+
+    scene, init, _, gts = rank_scene(dev)
+    cfg = optimization_config("gs_mesh")
+    state = make_train_state(init, cfg, scene.cameras_extent)
+    if mode == "data":
+        step, pick = make_dp_train_step(mesh_model, cfg, SH_DEGREE, create_mesh()), rank
+    elif mode == "composed":
+        mesh = create_mesh2d(world // 2, 2)
+        step = make_sharded_train_step(mesh_model, cfg, SH_DEGREE, mesh, shard="gaussians",
+                                       model_axis="model", data_axis="data")
+        pick = mesh.get_local_rank("data")
+    else:
+        step, pick = make_sharded_train_step(mesh_model, cfg, SH_DEGREE, create_mesh(),
+                                             shard=mode), 0
+    cams, bg = scene.train_cameras, torch.ones(3, device=dev)
+    launch_counts(reset=True)
+    _, metrics = step(state, cams[pick][0], gts[pick], bg)
+    out = {"first_loss": float(metrics["loss"]),
+           "stats": {k: getattr(state.stats, k).cpu().clone()
+                     for k in ("grad_accum", "denom", "max_radii")},
+           "losses": [float(metrics["loss"])], "step_ms": []}
+    if rank == 0:
+        out["grads"] = {k: p.grad.cpu().clone() for k, p in state.params.items()}
+    for i in range(1, PAR_STEPS):
+        c = (pick + i) % len(cams)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics = step(state, cams[c][0], gts[c], bg)
+        end.record()
+        end.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(float(metrics["loss"]))
+    out["launches"] = launch_counts()
+    sums = [None] * world
+    dist.all_gather_object(sums, params_checksum(state.params))
+    out["checksums"] = sums
+    return out
+
+
+def p8_app(rank, world, dev, *, flag, model_dir):
+    """(f): apps.train.main at world 2 (the group is up: the app joins it) for
+    PAR_STEPS steps of a parallel mode: its losses, launches and a checksum
+    of its final params on every rank."""
+    import torch.distributed as dist
+
+    from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
+
+    launch_counts(reset=True)
+    res = train_app.main(["--gs_type", "gs_mesh", "-s", os.path.join(WORK, "scene"),
+                          "-m", model_dir, "--num_splats", str(NUM_SPLATS),
+                          "--sh_degree", str(SH_DEGREE), "--white_background",
+                          "--iterations", str(PAR_STEPS), "--test_iterations", "-1",
+                          "--save_iterations", str(PAR_STEPS), *flag])
+    sums = [None] * world
+    dist.all_gather_object(sums, params_checksum(res.state.params))
+    return {"losses": res.losses, "launches": launch_counts(), "checksums": sums}
+
+
+def p8_comm(rank, world, dev):
+    """(g): the collectives alone, on the card's tensors over gloo (host
+    clock, synchronised, median of 10): the gathers of a rows band and of a
+    Gaussian slab's planes at 800x800, and the all-reduce of the gs_mesh
+    step's gradients (params and mean2d_offset)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE
+    from gaussian_mesh_splatting_tpu_torch.parallel import create_mesh
+    from gaussian_mesh_splatting_tpu_torch.parallel.collectives import (
+        all_reduce_flat, gather_portions)
+    from gaussian_mesh_splatting_tpu_torch.parallel.row_sharded import band_tiles
+
+    _, init, _, _ = rank_scene(dev)
+    group = create_mesh().get_group()
+    n_grad = sum(p.numel() for p in init["params"].values()) + 2 * init["alive"].shape[0]
+
+    def host_ms(fn, reps=10):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    band = torch.rand((band_tiles(SIZE, world) * TILE, SIZE, 5), device=dev)
+    slab = torch.rand((SIZE, SIZE, 5), device=dev)
+    grads = [torch.rand((n_grad,), device=dev)]
+    return {"gather_rows_band_ms": host_ms(lambda: gather_portions(band, group)),
+            "rows_band_MB": band.numel() * 4 / 1e6,
+            "gather_gaussian_slab_ms": host_ms(lambda: gather_portions(slab, group)),
+            "gaussian_slab_MB": slab.numel() * 4 / 1e6,
+            "all_reduce_grads_ms": host_ms(lambda: all_reduce_flat(grads, group)),
+            "grads_MB": n_grad * 4 / 1e6}
+
+
+def p8_scaling(rank, world, dev):
+    """(g): multihost.measure_scaling of the DP step at widths 1 and 2."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.parallel import make_dp_train_step, multihost
+    from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
+
+    scene, init, _, gts = rank_scene(dev)
+    cfg = optimization_config("gs_mesh")
+
+    def builder(mesh):
+        state = make_train_state(init, cfg, scene.cameras_extent)
+        step = make_dp_train_step(mesh_model, cfg, SH_DEGREE, mesh)
+        return step, (state, scene.train_cameras[rank][0], gts[rank], torch.ones(3, device=dev))
+
+    return multihost.measure_scaling(builder, widths=[1, world], iters=5)
+
+
+PARALLEL_CASES = {"render": p8_render, "steps": p8_steps, "app": p8_app, "comm": p8_comm,
+                  "scaling": p8_scaling}
+
+
+def parallel_rank(rank: int, world: int, out_dir: str, cases: dict, backend: str) -> None:
+    """One spawned rank of phase 8: join the `backend` group (file store
+    under `out_dir`) on cuda:0, run `cases` ({key: (case, kwargs)}) in
+    order, save the results and the backend of the mesh's group to
+    out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_mesh_splatting_tpu_torch.parallel import create_mesh, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"file://{os.path.join(out_dir, 'store')}", world_size=world,
+                         rank=rank, backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    results = {"backend": dist.get_backend(create_mesh().get_group())}
+    for key, (name, kw) in cases.items():
+        t0 = time.perf_counter()
+        results[key] = PARALLEL_CASES[name](rank, world, dev, **kw)
+        if rank == 0:
+            log(f"    [8] rank 0: {key} in {time.perf_counter() - t0:.1f} s")
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(cases: dict, world: int, name: str, timeout: float = 600.0,
+                backend: str = "gloo") -> list:
+    """Run `cases` on `world` spawned ranks sharing the card; returns each
+    rank's results. A rank that fails ends the others and the script."""
+    import multiprocessing
+
+    import torch
+
+    out_dir = os.path.join(WORK, "parallel", name)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, out_dir, cases, backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise SystemExit(f"phase 8 ({name}): rank exit codes {codes}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(world)]
+
+
+def unsharded_references(ns, dev) -> list:
+    """The unsharded step (train/loop.make_train_step) from the fresh student
+    on train views 0 and 1: loss, gradients and statistics (on the host)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.train import (
+        make_train_state, make_train_step, optimization_config)
+
+    cfg = optimization_config("gs_mesh")
+    refs = []
+    for c in (0, 1):
+        state = make_train_state(ns.scene.init_model_state(mesh_model, SH_DEGREE), cfg,
+                                 ns.scene.cameras_extent)
+        cam, gt = ns.scene.train_cameras[c]
+        _, metrics = make_train_step(mesh_model, cfg, SH_DEGREE)(
+            state, cam, torch.as_tensor(gt, device=dev), torch.ones(3, device=dev))
+        refs.append({"loss": float(metrics["loss"]),
+                     "grads": {k: p.grad.cpu().clone() for k, p in state.params.items()},
+                     "stats": {k: getattr(state.stats, k).cpu().clone()
+                               for k in ("grad_accum", "denom", "max_radii")}})
+    return refs
+
+
+def check_first_step(label: str, got: dict, grads: dict, refs: list) -> dict:
+    """A parallel step's first step against the unsharded steps `refs` (one:
+    that step; two: their camera mean, the statistics summed, radii max)."""
+    import torch
+
+    want_loss = sum(r["loss"] for r in refs) / len(refs)
+    want_grads = {k: sum(r["grads"][k] for r in refs) / len(refs) for k in refs[0]["grads"]}
+    want = {"grad_accum": sum(r["stats"]["grad_accum"] for r in refs),
+            "denom": sum(r["stats"]["denom"] for r in refs),
+            "max_radii": torch.stack([r["stats"]["max_radii"] for r in refs]).amax(0)}
+    grad_err = {}
+    for k, g in want_grads.items():
+        scale = float(g.abs().max())
+        grad_err[k] = float((grads[k] - g).abs().max()) / max(scale, 1e-30)
+        if not torch.isfinite(grads[k]).all() or grad_err[k] > PAR_GRAD_TOL:
+            raise SystemExit(f"[8] {label}: gradient of {k} off by {grad_err[k]:.3g} x max|g|")
+    stats_err = float((got["stats"]["grad_accum"] - want["grad_accum"]).abs().max())
+    if stats_err > PAR_STATS_TOL or not torch.equal(got["stats"]["denom"], want["denom"]) \
+            or not torch.equal(got["stats"]["max_radii"], want["max_radii"]):
+        raise SystemExit(f"[8] {label}: statistics disagree (grad_accum {stats_err:.3g})")
+    loss_err = abs(got["first_loss"] - want_loss) / want_loss
+    if loss_err > 1e-4:
+        raise SystemExit(f"[8] {label}: loss {got['first_loss']} vs {want_loss}")
+    return {"max_grad_err_rel": max(grad_err.values()), "grad_accum_err": stats_err,
+            "loss_rel_err": loss_err}
+
+
+def check_run(label: str, ranks: list, want_launches: tuple[int, int]) -> None:
+    """Every rank's params bit-identical (checksums), launches as expected,
+    the loss falling (mean of the last 5 steps below the first 5)."""
+    sums = ranks[0]["checksums"]
+    if len(set(sums)) != 1:
+        raise SystemExit(f"[8] {label}: params differ across ranks (checksums {sums})")
+    for r, res in enumerate(ranks):
+        if tuple(res["launches"]) != want_launches:
+            raise SystemExit(f"[8] {label}: rank {r} launched {res['launches']}, "
+                             f"expected {want_launches}")
+    losses = ranks[0]["losses"]
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise SystemExit(f"[8] {label}: the loss does not fall ({losses})")
+
+
+def parallel_and_native(ns, dev, card: str) -> dict:
+    """Phase 8: the parallel modes with their ranks spawned on the one card
+    over gloo ((a)-(g)); on NCCL, one rank's renders and steps of every mode
+    against the unsharded ones, and a world-1 torchrun launch of apps.train
+    (h); and io/native (i). Returns the launch counts of each path ({"fwd",
+    "bwd"}) and the phase's numbers."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.io import native
+    from gaussian_mesh_splatting_tpu_torch.io.ply import read_ply
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import composite_fwd_cuda
+    from gaussian_mesh_splatting_tpu_torch.parallel.row_sharded import row_band
+    from gaussian_mesh_splatting_tpu_torch.scene.colmap_loader import read_points3D_binary
+
+    shutil.rmtree(os.path.join(WORK, "parallel"), ignore_errors=True)
+    fwd, bwd, out = {}, {}, {}
+    log(f"[8] parallel modes: {PAR_WORLD} (and 4) ranks spawned as processes that share one "
+        f"card ({card}) over gloo: times and efficiencies are of ranks sharing a card, not "
+        "scaling figures")
+
+    # the row bands' B1 alone, beside the whole image's (the cost of the
+    # out-of-band tiles' empty blocks), on the teacher's view 0
+    cam0 = ns.scene.train_cameras[0][0]
+    with torch.no_grad():
+        b1 = {}
+        for label, band in [("whole", None)] + [
+                (f"band{r}", row_band(SIZE, r, PAR_WORLD)) for r in range(PAR_WORLD)] + [
+                ("no_tiles", (SIZE // 16, SIZE // 16))]:
+            _, binning, args, layout = composite_inputs(ns.bag, cam0, SH_DEGREE, row_band=band)
+            b1[label] = {"pairs": int(binning.pair_gaussian.shape[0]),
+                         "queued_ms": cuda_ms_queued(
+                             lambda: composite_fwd_cuda(*args, **layout), reps=20)}
+    out["b1_bands"] = b1
+    log(f"    B1 alone per row band, 800x800 (queued ms): {json.dumps(b1)}")
+
+    refs = unsharded_references(ns, dev)
+    launch_counts(reset=True)  # the references' and the bands' launches are not a path's
+    t0 = time.perf_counter()
+    flags = {"data": ["--data_parallel"], "rows": ["--shard", "rows"],
+             "gaussians": ["--shard", "gaussians"]}
+    # in this order: the first steps' optimizer imports torch._dynamo (seconds
+    # a process), which the ranks then do side by side
+    cases = {"render": ("render", {}),
+             **{f"steps_{m}": ("steps", {"mode": m}) for m in flags},
+             **{f"app_{m}": ("app", {"flag": f, "model_dir": os.path.join(WORK, f"par_{m}")})
+                for m, f in flags.items()},
+             "comm": ("comm", {}), "scaling": ("scaling", {})}
+    two = spawn_ranks(cases, PAR_WORLD, "world2")
+    log(f"    world 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    four = spawn_ranks({"steps_composed": ("steps", {"mode": "composed"})}, 4, "world4")
+    log(f"    world 4: {time.perf_counter() - t0:.1f} s")
+
+    # (a), (b)
+    for r, res in enumerate(two):
+        rend = res["render"]
+        if not rend["rows"]["bit_equal"]:
+            raise SystemExit(f"[8a] rank {r}: the row-sharded render is not bit-equal "
+                             f"(max err {rend['rows']['max_abs_err']})")
+        if not rend["gaussians"]["max_abs_err"] <= PAR_SATURATION_TOL:
+            raise SystemExit(f"[8b] rank {r}: the Gaussian-sharded render is off by "
+                             f"{rend['gaussians']['max_abs_err']}")
+        for shard in ("rows", "gaussians"):
+            if tuple(rend[shard]["launches"]) != (1, 0):
+                raise SystemExit(f"[8] rank {r}: {shard} render launched {rend[shard]['launches']}")
+    rend = two[0]["render"]
+    out["render"] = rend
+    log(f"[8a] rows render (world 2) bit-equal to the unsharded one on every rank; "
+        f"[8b] gaussians render max abs err {rend['gaussians']['max_abs_err']:.3g} "
+        f"(bound {PAR_SATURATION_TOL}), {rend['saturated_pixels']} saturated pixels "
+        f"(T <= {SATURATED_T}); render ms (rank 0, median of 5): rows "
+        f"{rend['rows']['ms']:.3f}, gaussians {rend['gaussians']['ms']:.3f}, unsharded "
+        f"{rend['unsharded_ms']:.3f}")
+    fwd["rows_render"], bwd["rows_render"] = rend["rows"]["launches"]
+    fwd["gaussians_render"], bwd["gaussians_render"] = rend["gaussians"]["launches"]
+
+    # (c), (d), (e): first steps; (f), (g): runs, times
+    out["steps"] = {}
+    for mode, ranks in [("rows", two), ("gaussians", two), ("data", two), ("composed", four)]:
+        got = [res[f"steps_{mode}"] for res in ranks]
+        refs_m = refs[:1] if mode in ("rows", "gaussians") else refs
+        errs = check_first_step(mode, got[0], got[0]["grads"], refs_m)
+        for r, g in enumerate(got[1:], 1):
+            check_first_step(f"{mode} rank {r}", g, got[0]["grads"], refs_m)
+        check_run(f"{mode} step", got, (PAR_STEPS, PAR_STEPS))
+        fwd[f"{mode}_step"], bwd[f"{mode}_step"] = got[0]["launches"]
+        out["steps"][mode] = {
+            **errs, "median_step_ms": {r: statistics.median(g["step_ms"][:PAR_TIMED])
+                                       for r, g in enumerate(got)},
+            "first_loss": got[0]["losses"][0], "last_loss": got[0]["losses"][-1]}
+        log(f"[8] {mode} step (world {len(got)}): {json.dumps(out['steps'][mode])}")
+    for mode in flags:
+        got = [res[f"app_{mode}"] for res in two]
+        check_run(f"apps.train {flags[mode]}", got, (PAR_STEPS, PAR_STEPS))
+        fwd[f"{mode}_train"], bwd[f"{mode}_train"] = got[0]["launches"]
+        log(f"[8f] apps.train {' '.join(flags[mode])} at world 2: {PAR_STEPS} steps, loss "
+            f"{got[0]['losses'][0]:.5f} -> {got[0]['losses'][-1]:.5f}, params bit-identical "
+            f"on both ranks, launches per rank {got[0]['launches']}")
+    out["comm"], out["scaling"] = two[0]["comm"], two[0]["scaling"]
+    log(f"[8g] collectives over gloo, cuda:0 tensors (ms): {json.dumps(out['comm'])}")
+    log(f"[8g] measure_scaling, DP step (two ranks share one card: not a scaling figure): "
+        f"{json.dumps(out['scaling'])}")
+
+    # (h) NCCL: one card holds one NCCL rank, so the collectives run on NCCL
+    # in a group of one: the renders and each mode's steps, held against the
+    # unsharded ones as (a)-(d) are; then a world-1 torchrun launch of
+    # apps.train (which trains a group of one as a single device does)
+    t0 = time.perf_counter()
+    modes = ("rows", "gaussians", "data")
+    (one,) = spawn_ranks({"render": ("render", {}),
+                          **{f"steps_{m}": ("steps", {"mode": m}) for m in modes}},
+                         1, "nccl_world1", backend="nccl")
+    if one["backend"] != "nccl":
+        raise SystemExit(f"[8h] the world-1 mesh's group runs {one['backend']}, not nccl")
+    if not one["render"]["rows"]["bit_equal"] \
+            or not one["render"]["gaussians"]["max_abs_err"] <= PAR_SATURATION_TOL:
+        raise SystemExit(f"[8h] NCCL renders disagree: {one['render']}")
+    out["nccl_steps"] = {}
+    for mode in modes:
+        got = one[f"steps_{mode}"]
+        out["nccl_steps"][mode] = check_first_step(f"nccl {mode}", got, got["grads"], refs[:1])
+        check_run(f"nccl {mode} step", [got], (PAR_STEPS, PAR_STEPS))
+        fwd[f"nccl_{mode}_step"], bwd[f"nccl_{mode}_step"] = got["launches"]
+    out["nccl_s"] = time.perf_counter() - t0
+    log(f"[8h] NCCL, one rank: rows render bit-equal, gaussians render max abs err "
+        f"{one['render']['gaussians']['max_abs_err']:.3g}; {PAR_STEPS} steps of each mode, "
+        f"first step vs make_train_step: {json.dumps(out['nccl_steps'])}; "
+        f"{out['nccl_s']:.1f} s")
+    t0 = time.perf_counter()
+    tr_dir = os.path.join(WORK, "torchrun_model")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "gaussian_mesh_splatting_tpu_torch.apps.train", "--gs_type", "gs_mesh",
+         "-s", ns.data_dir, "-m", tr_dir, "--num_splats", str(NUM_SPLATS),
+         "--sh_degree", str(SH_DEGREE), "--white_background",
+         "--iterations", str(TORCHRUN_ITERS), "--test_iterations", "-1", "--shard", "gaussians"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "joined a process group of 1 (nccl)" not in proc.stdout \
+            or not os.path.exists(os.path.join(tr_dir, "point_cloud",
+                                               f"iteration_{TORCHRUN_ITERS}")):
+        raise SystemExit(f"[8h] torchrun apps.train failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out["torchrun_s"] = time.perf_counter() - t0
+    log(f"[8h] torchrun --nproc_per_node 1 apps.train --shard gaussians: joined a process group "
+        f"of 1 (nccl) and trained it as a single device, {TORCHRUN_ITERS} steps, snapshot "
+        f"written, {out['torchrun_s']:.1f} s")
+
+    # (i) io/native against the numpy readers
+    if native.fastio() is None:
+        raise SystemExit("[8i] the fastio extension did not build")
+    reads = {"points3D.bin": lambda: read_points3D_binary(
+        os.path.join(ns.colmap_dir, "sparse", "0", "points3D.bin")),
+        "points3d.ply": lambda: read_ply(os.path.join(ns.gs_data_dir, "points3d.ply"))}
+    out["native"] = {}
+    for name, read in reads.items():
+        fast, fast_s = read(), []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            read()
+            fast_s.append(time.perf_counter() - t1)
+        real = native.fastio
+        native.fastio = lambda: None
+        try:
+            slow, slow_s = read(), []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                read()
+                slow_s.append(time.perf_counter() - t1)
+        finally:
+            native.fastio = real
+        if isinstance(fast, dict):  # PLY columns by name
+            if list(fast) != list(slow):
+                raise SystemExit(f"[8i] fastio's {name} columns differ: {list(fast)}")
+            fast, slow = list(fast.values()), list(slow.values())
+        if not all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                   for a, b in zip(fast, slow)):
+            raise SystemExit(f"[8i] fastio's {name} differs from the numpy reader's")
+        out["native"][name] = {"fastio_ms": 1e3 * statistics.median(fast_s),
+                               "numpy_ms": 1e3 * statistics.median(slow_s)}
+    log(f"[8i] fastio equals the numpy readers byte for byte (host ms, median of 3): "
+        f"{json.dumps(out['native'])}")
+    return {"fwd": fwd, "bwd": bwd, **out}
+
+
 def main() -> int:
     import concurrent.futures
 
@@ -1944,7 +2499,13 @@ def main() -> int:
     log(f"    phase 7: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 8. output lines ----------------------------------------------------
+    # ---- 8. the parallel modes and io/native --------------------------------
+    t0 = time.perf_counter()
+    phase8 = parallel_and_native(ns, dev, card)
+    log(f"    phase 8: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 9. output lines ----------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -1960,6 +2521,7 @@ def main() -> int:
         "launches_flame_train": flame_fwd_launches,
         "launches_render_flame": render_flame_launches,
         **{f"launches_{k}": v for k, v in phase7["fwd"].items()},
+        **{f"launches_{k}_per_rank": v for k, v in phase8["fwd"].items()},
         "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"],
                            flame_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
@@ -1987,6 +2549,7 @@ def main() -> int:
         "launches_flame_train": flame_bwd_launches,
         "launches_render_flame": 0,
         **{f"launches_{k}": v for k, v in phase7["bwd"].items()},
+        **{f"launches_{k}_per_rank": v for k, v in phase8["bwd"].items()},
         "max_abs_err": max(full_bwd["photometric"]["max_abs_err"],
                            gs_bwd["photometric"]["max_abs_err"],
                            flame_bwd["photometric"]["max_abs_err"]),

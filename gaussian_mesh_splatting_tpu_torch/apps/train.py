@@ -1,6 +1,6 @@
-"""Training CLI (port of `gaussian_mesh_splatting_tpu/apps/train.py`, the
-single-device paths: `gs_mesh`, `gs_multi_mesh`, `gs_flame`, and `gs` /
-`gs_flat` with densification).
+"""Training CLI (port of `gaussian_mesh_splatting_tpu/apps/train.py`:
+`gs_mesh`, `gs_multi_mesh`, `gs_flame`, and `gs` / `gs_flat` with
+densification, on one device or, one process per device, on several).
 
     python -m gaussian_mesh_splatting_tpu_torch.apps.train \\
         --gs_type gs|gs_flat|gs_mesh|gs_multi_mesh|gs_flame -s <dataset> -m <output> \\
@@ -36,14 +36,35 @@ dumps to `{model}/debug_dump_<it>.npz` before the run raises.
 `--profile_steps START:STOP` traces steps START..STOP with `torch.profiler`
 into `{model}/profile/trace.json`; `--port` serves the SIBR viewer's frames
 from the training loop (`apps/network_gui.py`, on `--ip`).
-`--shard`/`--data_parallel` with more than one device raise
-NotImplementedError.
+
+Parallel modes (`parallel/`), one process per device under `torchrun`:
+
+    torchrun --nproc_per_node N -m gaussian_mesh_splatting_tpu_torch.apps.train \\
+        ... --shard data|rows|gaussians        # --data_parallel = --shard data
+
+`--shard data` renders one camera per rank a step (the step's cameras are
+the next N of the seeded order, rank r takes the r-th) and averages the
+gradients; `rows` and `gaussians` render one camera a step in portions (tile
+rows; depth slabs of the Gaussians) and reassemble it. The processes join
+through `parallel.multihost.initialize` (NCCL on the card; gloo with
+`--device cpu`). Every rank runs the same loop on the same replicated state,
+densifying with the same seeded generator; only rank 0 writes the model
+directory (cfg_args, input.ply, cameras.json, metrics, snapshots,
+checkpoints, debug dumps, the profile trace), prints, evaluates the test
+views and serves the viewer. Meanwhile the other ranks wait in the next
+step's first collective; with `--port`, in a barrier at the top of every
+iteration instead, on a gloo group whose timeout is `VIEWER_PAUSE_LIMIT`, so
+that a viewer may pause training for longer than the job's process group
+would wait in a collective. A job of one process trains as a single device
+does; more than one visible card with a sharding flag and no process group
+is an error.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import os
 import random
 import time
@@ -51,6 +72,9 @@ import traceback
 
 import numpy as np
 import torch
+
+# how long a viewer may pause a run of several processes (see the docstring)
+VIEWER_PAUSE_LIMIT = datetime.timedelta(days=7)
 
 
 @dataclasses.dataclass
@@ -196,10 +220,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args, n_devices: int) -> None:
-    if (args.shard != "none" or args.data_parallel) and n_devices > 1:
-        raise NotImplementedError("multi-device training (--shard, --data_parallel) "
-                                  "is not ported yet")
+def parallel_setup(args, device: torch.device, cleanup: contextlib.ExitStack):
+    """(mode, mesh, rank, world) of the run: ("none", None, 0, 1) unless a
+    sharding flag is given and the process is one of a job of several, whose
+    process group it joins (and leaves when the run ends, if it started it)."""
+    import torch.distributed as dist
+
+    from ..parallel import create_mesh, multihost
+
+    mode = "data" if args.data_parallel and args.shard == "none" else args.shard
+    if mode == "none":
+        return "none", None, 0, 1
+    started = not multihost.is_initialized()
+    if not multihost.initialize(backend="gloo" if device.type == "cpu" else None):
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise RuntimeError(
+                f"--shard {mode} with {torch.cuda.device_count()} visible CUDA devices and no "
+                "process group: launch one process per device, torchrun --nproc_per_node "
+                "<devices> -m gaussian_mesh_splatting_tpu_torch.apps.train ...")
+        return "none", None, 0, 1
+    if started:
+        cleanup.callback(dist.destroy_process_group)
+    if dist.get_rank() == 0:
+        print(f"joined a process group of {dist.get_world_size()} ({dist.get_backend()})")
+    if dist.get_world_size() == 1:
+        return "none", None, 0, 1
+    return mode, create_mesh(), dist.get_rank(), dist.get_world_size()
 
 
 def main(argv=None) -> TrainResult:
@@ -220,6 +266,7 @@ def _train(args, profile_range: tuple[int, int] | None,
     from ..io.config_io import save_cfg
     from ..io.snapshots import save_snapshot
     from ..models import model_for
+    from ..parallel import make_dp_train_step, make_sharded_train_step
     from ..scene import Scene
     from ..train import (
         densify_and_prune,
@@ -235,6 +282,11 @@ def _train(args, profile_range: tuple[int, int] | None,
     from .network_gui import NetworkGUI, image_to_bytes, parse_camera
 
     device = resolve_device(args.device)
+    shard_mode, mesh, rank, world = parallel_setup(args, device, cleanup)
+    if world > 1 and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())  # cuda:LOCAL_RANK
+    main_rank = rank == 0
+    say = print if main_rank else (lambda *a, **kw: None)
     # float32 stays float32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -252,17 +304,23 @@ def _train(args, profile_range: tuple[int, int] | None,
     if args.random_background:
         overrides["random_background"] = True
     cfg = optimization_config(args.gs_type, **overrides)
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    _refuse_unported(args, n_devices)
     if args.pair_capacity is not None and args.pair_capacity <= 0:
         raise ValueError("--pair_capacity must be positive")
     gui = None
-    if args.port:
+    if args.port and main_rank:
         gui = NetworkGUI(args.ip, args.port)
         cleanup.callback(gui.close)
+    # rank 0 alone serves the viewer: while the viewer pauses training, the
+    # other ranks wait for it in a barrier of a gloo group of their own, not
+    # in a collective of the job's group, whose timeout would end the job
+    gui_group = None
+    if args.port and world > 1:
+        import torch.distributed as dist
+
+        gui_group = dist.new_group(backend="gloo", timeout=VIEWER_PAUSE_LIMIT)
 
     scene = Scene(
-        args.source_path, args.gs_type, model_path=args.model_path,
+        args.source_path, args.gs_type, model_path=args.model_path if main_rank else None,
         white_background=args.white_background, eval=args.eval,
         resolution=args.resolution, images=args.images, num_splats=args.num_splats,
         meshes=args.meshes, flame_rig=flame_rig, seed=args.seed, device=device,
@@ -274,16 +332,17 @@ def _train(args, profile_range: tuple[int, int] | None,
     tstate = make_train_state(mstate, cfg, scene.cameras_extent)
     if args.start_checkpoint:
         tstate = restore_checkpoint(args.start_checkpoint, tstate)
-        print(f"resumed from {args.start_checkpoint} at step {tstate.step} "
-              f"({int(tstate.alive.sum())} alive of {tstate.alive.shape[0]} rows)")
-    save_cfg(args.model_path, {
-        "gs_type": args.gs_type, "source_path": os.path.abspath(args.source_path),
-        "model_path": args.model_path, "images": args.images,
-        "resolution": args.resolution, "white_background": args.white_background,
-        "sh_degree": args.sh_degree, "eval": args.eval,
-        "num_splats": args.num_splats, "meshes": args.meshes,
-        "flame_model": args.flame_model,
-    })
+        say(f"resumed from {args.start_checkpoint} at step {tstate.step} "
+            f"({int(tstate.alive.sum())} alive of {tstate.alive.shape[0]} rows)")
+    if main_rank:
+        save_cfg(args.model_path, {
+            "gs_type": args.gs_type, "source_path": os.path.abspath(args.source_path),
+            "model_path": args.model_path, "images": args.images,
+            "resolution": args.resolution, "white_background": args.white_background,
+            "sh_degree": args.sh_degree, "eval": args.eval,
+            "num_splats": args.num_splats, "meshes": args.meshes,
+            "flame_model": args.flame_model,
+        })
 
     # the pair list is sized exactly unless --pair_capacity bounds it; the
     # overflow count is a host int, so the bound grows right after the step
@@ -292,6 +351,12 @@ def _train(args, profile_range: tuple[int, int] | None,
 
     def build_step(cap):
         rkw = {"pair_capacity": cap} if cap is not None else {}
+        if shard_mode == "data":
+            return make_dp_train_step(model, cfg, args.sh_degree, mesh, backend=args.backend,
+                                      render_kwargs=rkw)
+        if shard_mode in ("rows", "gaussians"):
+            return make_sharded_train_step(model, cfg, args.sh_degree, mesh, shard=shard_mode,
+                                           render_kwargs=rkw)
         return make_train_step(model, cfg, args.sh_degree, backend=args.backend,
                                render_kwargs=rkw)
 
@@ -305,12 +370,14 @@ def _train(args, profile_range: tuple[int, int] | None,
     gts, gt_on_device = place_gt([g for _, g in scene.train_cameras], device,
                                  gt_budget(device))
     if not gt_on_device:
-        print(f"the {len(gts)} GT images exceed a quarter of the device's free memory: "
-              "they stay in host memory and each step copies its image over")
+        say(f"the {len(gts)} GT images exceed a quarter of the device's free memory: "
+            "they stay in host memory and each step copies its image over")
     cams = [(c, g) for (c, _), g in zip(scene.train_cameras, gts)]
     order: list[int] = []
-    logger = MetricsLogger(args.model_path, tensorboard=True)
-    if args.save_xyz:
+    if shard_mode != "none":
+        say(f"{shard_mode}-parallel over {world} processes ({mesh.device_type} transport)")
+    logger = MetricsLogger(args.model_path, tensorboard=True) if main_rank else None
+    if args.save_xyz and main_rank:
         os.makedirs(os.path.join(args.model_path, "xyz"), exist_ok=True)
 
     losses: list[torch.Tensor] = []
@@ -326,11 +393,11 @@ def _train(args, profile_range: tuple[int, int] | None,
             torch.cuda.synchronize(device)
 
     for it in range(start_iter + 1, cfg.iterations + 1):
-        if args.save_xyz and (it % 5000 == 1 or it == cfg.iterations):
+        if args.save_xyz and main_rank and (it % 5000 == 1 or it == cfg.iterations):
             with torch.no_grad():
                 xyz = model.to_bag(tstate.model_state()).xyz
             np.save(os.path.join(args.model_path, "xyz", f"{it}.npy"), xyz.cpu().numpy())
-        if profile_range and it == profile_range[0]:
+        if profile_range and main_rank and it == profile_range[0]:
             sync()
             profiling.enter_context(profiler_trace(os.path.join(args.model_path, "profile")))
         # GUI poll: while a viewer is connected, serve its frames; go on to
@@ -353,16 +420,22 @@ def _train(args, profile_range: tuple[int, int] | None,
             except (OSError, ValueError, KeyError):  # a socket fault or a malformed request
                 traceback.print_exc()
                 gui.disconnect()
+        if gui_group is not None:
+            dist.barrier(group=gui_group)
         if it % 1000 == 0:
             one_up_sh_degree(tstate, args.sh_degree)
         if cfg.random_background:
             bg = torch.as_tensor(np_rng.random(3), dtype=torch.float32, device=device)
         else:
             bg = bg_color
-        if not order:
-            order = list(range(len(cams)))
-            rng.shuffle(order)
-        cam, gt = cams[order.pop()]
+        # the step's cameras: one, or under --shard data one a rank
+        picked = []
+        while len(picked) < (world if shard_mode == "data" else 1):
+            if not order:
+                order = list(range(len(cams)))
+                rng.shuffle(order)
+            picked.append(order.pop())
+        cam, gt = cams[picked[rank if shard_mode == "data" else 0]]
         gt = gt.to(device, non_blocking=True)
         # the loss is read on the host after this step: keep its inputs for
         # the dump (the step updates the state in place)
@@ -373,23 +446,23 @@ def _train(args, profile_range: tuple[int, int] | None,
         except RuntimeError as e:  # anomaly mode raises inside the backward
             if not args.detect_anomaly:
                 raise
-            dump = dump_debug_state(args.model_path, it, inputs, cam)
+            dump = dump_debug_state(args.model_path, it, inputs, cam) if main_rank else "rank 0"
             raise RuntimeError(f"train step {it} failed under --detect_anomaly; step inputs "
                                f"dumped to {dump}") from e
         losses.append(metrics["loss"])
         if args.detect_anomaly and not np.isfinite(float(metrics["loss"])):
-            dump = dump_debug_state(args.model_path, it, inputs, cam)
+            dump = dump_debug_state(args.model_path, it, inputs, cam) if main_rank else "rank 0"
             raise RuntimeError(f"non-finite loss at iteration {it}; step inputs dumped to {dump}")
-        if profile_range and it == profile_range[1]:
+        if profile_range and main_rank and it == profile_range[1]:
             sync()
             profiling.close()
-            print(f"[it {it}] profiled steps {profile_range[0]}..{it} into "
-                  f"{os.path.join(args.model_path, 'profile')}")
+            say(f"[it {it}] profiled steps {profile_range[0]}..{it} into "
+                f"{os.path.join(args.model_path, 'profile')}")
 
         if metrics["overflow"] > 0 and pair_capacity is not None:
             pair_capacity *= 2
-            print(f"[it {it}] rasterizer pair overflow ({metrics['overflow']} pairs dropped): "
-                  f"growing pair_capacity to {pair_capacity}")
+            say(f"[it {it}] rasterizer pair overflow ({metrics['overflow']} pairs dropped): "
+                f"growing pair_capacity to {pair_capacity}")
             step_fn = build_step(pair_capacity)
 
         if densify and it < cfg.densify_until_iter:
@@ -409,12 +482,12 @@ def _train(args, profile_range: tuple[int, int] | None,
                 info = dict(zip(info, torch.stack(list(info.values())).tolist()))
                 densify_events.append({"iteration": it, **info})
                 if not args.quiet and info["overflow"] > 0:
-                    print(f"[it {it}] densify overflow: {info['overflow']} dropped")
+                    say(f"[it {it}] densify overflow: {info['overflow']} dropped")
                 if not args.quiet and info["n_pruned"] > 0.5 * max(info["n_alive"], 1):
-                    print(f"[it {it}] WARNING: densify pruned {info['n_pruned']} "
-                          f"(opacity {info['n_pruned_opacity']}, "
-                          f"screen {info['n_pruned_screen']}, "
-                          f"world {info['n_pruned_world']}) — {info['n_alive']} alive")
+                    say(f"[it {it}] WARNING: densify pruned {info['n_pruned']} "
+                        f"(opacity {info['n_pruned_opacity']}, "
+                        f"screen {info['n_pruned_screen']}, "
+                        f"world {info['n_pruned_world']}) — {info['n_alive']} alive")
             if it % cfg.opacity_reset_interval == 0 or (
                 args.white_background and it == cfg.densify_from_iter
             ):
@@ -426,22 +499,23 @@ def _train(args, profile_range: tuple[int, int] | None,
             iter_ms = (time.time() - t_boundary) / max(it - it_boundary, 1) * 1000
             t_boundary, it_boundary = time.time(), it
             if not args.quiet:
-                print(f"[it {it}/{cfg.iterations}] loss {ema_loss:.5f} "
-                      f"psnr {float(metrics['psnr']):.2f} iter {iter_ms:.1f}ms "
-                      f"({time.time() - t_start:.0f}s)")
+                say(f"[it {it}/{cfg.iterations}] loss {ema_loss:.5f} "
+                    f"psnr {float(metrics['psnr']):.2f} iter {iter_ms:.1f}ms "
+                    f"({time.time() - t_start:.0f}s)")
             if not np.isfinite(loss):
-                dump = dump_debug_state(args.model_path, it, inputs, cam)
+                dump = dump_debug_state(args.model_path, it, inputs, cam) if main_rank \
+                    else "rank 0"
                 raise RuntimeError(f"non-finite loss at iteration {it}; step inputs dumped to "
                                    f"{dump} (re-run with --detect_anomaly to catch the step "
                                    "that produced it)")
-            if it % 100 == 0:
+            if it % 100 == 0 and main_rank:
                 logger.scalar("train_loss_patches/total_loss", loss, it)
                 logger.scalar("train_loss_patches/l1_loss", float(metrics["l1"]), it)
                 logger.scalar("iter_time", iter_ms, it)
                 logger.scalar("rasterizer/pair_overflow", metrics["overflow"], it)
                 logger.scalar("total_points", float(tstate.alive.sum()), it)
 
-        if it in args.test_iterations and scene.test_cameras:
+        if it in args.test_iterations and scene.test_cameras and main_rank:
             vals = []
             for idx, (tc, tgt) in enumerate(scene.test_cameras):
                 img = eval_fn(tstate, tc, bg_color)
@@ -449,26 +523,27 @@ def _train(args, profile_range: tuple[int, int] | None,
                 if idx < 5:
                     logger.image(f"test_view_{idx}/render", img.cpu().numpy(), it)
             test_psnr[it] = float(np.mean(vals))
-            print(f"[it {it}] eval: test PSNR {test_psnr[it]:.2f}")
+            say(f"[it {it}] eval: test PSNR {test_psnr[it]:.2f}")
             logger.scalar("test/psnr", test_psnr[it], it)
             logger.histogram("scene/opacity_histogram",
                              torch.sigmoid(tstate.params["opacity"]).detach().cpu().numpy(), it)
             logger.flush()
 
-        if it in args.save_iterations:
+        if it in args.save_iterations and main_rank:
             out_dir = snapshot_dir(args.model_path, it)
             save_snapshot(args.gs_type, model, tstate.model_state(), out_dir)
-            print(f"[it {it}] saved snapshot to {out_dir}")
+            say(f"[it {it}] saved snapshot to {out_dir}")
 
-        if it in args.checkpoint_iterations:
+        if it in args.checkpoint_iterations and main_rank:
             save_checkpoint(checkpoint_path(args.model_path, it), tstate)
-            print(f"[it {it}] checkpoint saved")
+            say(f"[it {it}] checkpoint saved")
 
-    if cfg.iterations not in args.save_iterations:
+    if cfg.iterations not in args.save_iterations and main_rank:
         save_snapshot(args.gs_type, model, tstate.model_state(),
                       snapshot_dir(args.model_path, cfg.iterations))
-    logger.close()
-    print(f"training done in {time.time() - t_start:.0f}s")
+    if logger is not None:
+        logger.close()
+    say(f"training done in {time.time() - t_start:.0f}s")
     return TrainResult(
         state=tstate,
         losses=torch.stack(losses).tolist() if losses else [],

@@ -1,5 +1,6 @@
-"""PLY codec, pure numpy (a copy of `gaussian_mesh_splatting_tpu/io/ply.py`
-without the optional native reader), writing byte-compatible files.
+"""PLY codec (a copy of `gaussian_mesh_splatting_tpu/io/ply.py`), writing
+byte-compatible files; binary vertex columns of 1 and 4 bytes are split by
+the `fastio` C extension where it builds (`io/native.py`), else by numpy.
 
 Two schemas are used by the pipeline:
   * point clouds: x y z nx ny nz red green blue (u1 colors)
@@ -64,6 +65,13 @@ def read_ply(path: str) -> dict[str, np.ndarray]:
             props.append((tok[2], np.dtype(_DTYPES[tok[1]])))
 
     if fmt == "binary_little_endian":
+        from .native import fastio
+
+        nat = fastio()
+        if nat is not None and all(d.itemsize in (1, 4) for _, d in props):
+            cols = nat.parse_ply_vertices(data, header_end, count,
+                                          [int(d.itemsize) for _, d in props])
+            return {name: col.view(d) for (name, d), col in zip(props, cols)}
         rec = np.dtype([(n, d.newbyteorder("<")) for n, d in props])
         arr = np.frombuffer(body[: count * rec.itemsize], dtype=rec, count=count)
     elif fmt == "ascii":

@@ -13,6 +13,12 @@ The GPU-natural form of `gaussian_mesh_splatting_tpu/ops/binning.py`:
      pair count, so the tiles with the longest walks start first and the
      short ones fill in behind them (`tile_launch_order`).
 
+With `row_band=(lo, hi)` only the tile rows lo <= ty < hi are binned: each
+rect's rows are clipped to the band and the tiles keep their global indices,
+so every tile of the band gets exactly the pairs, in the order, that it gets
+without a band, and every other tile gets none (row-sharded rendering,
+`parallel/row_sharded.py`).
+
 Sizing the pair list needs the total pair count on the host: one `.item()`
 synchronisation per render. With `pair_capacity` the first pairs in
 depth-rank order are kept and the rest reported as `overflow`; without it
@@ -82,9 +88,11 @@ def bin_gaussians(
     n_tiles_y: int,
     n_tiles_x: int,
     pair_capacity: int | None = None,
+    row_band: tuple[int, int] | None = None,
 ) -> Binning:
     """Depth-ordered per-tile pair lists (see the module docstring). Integer
-    work only: it runs outside autograd, and its outputs carry no gradient."""
+    work only: it runs outside autograd, and its outputs carry no gradient.
+    `row_band=(lo, hi)` bins only the tile rows [lo, hi)."""
     dev = proj.mean2d.device
     n = proj.mean2d.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
@@ -95,6 +103,10 @@ def bin_gaussians(
         proj.mean2d[order], proj.radius_x[order], tile_h, tile_w,
         n_tiles_y, n_tiles_x, radius_y=proj.radius_y[order],
     )
+    if row_band is not None:
+        lo, hi = row_band
+        ymin = torch.clamp(ymin, lo, hi)
+        ymax = torch.clamp(ymax, lo, hi)
     sx = torch.clamp_min(xmax - xmin, 0).long()
     sy = torch.clamp_min(ymax - ymin, 0).long()
     span = torch.where(proj.valid[order], sx * sy, 0)

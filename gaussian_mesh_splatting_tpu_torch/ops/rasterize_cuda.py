@@ -481,11 +481,15 @@ def rasterize_cuda(
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     pair_capacity: int | None = None,
+    row_band: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Fast equivalent of `rasterize_reference` (same contract) at 16x16
     tiles, differentiable through the composite kernels. `pair_capacity`
     bounds the pair list; pairs beyond it are dropped and counted in
-    `overflow`."""
+    `overflow`. `row_band=(lo, hi)` renders only the tile rows [lo, hi):
+    `image`, `depth` and `alpha` hold the pixel rows [lo * TILE,
+    min(hi * TILE, H)), each equal to the same rows of the whole render
+    (the kernels walk nothing outside the band)."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
@@ -497,12 +501,14 @@ def rasterize_cuda(
     n_ty, n_tx = _tile_grid(h, w)
     binning = bin_gaussians(
         proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
-        pair_capacity=pair_capacity,
+        pair_capacity=pair_capacity, row_band=row_band,
     )
     planes, _nc = composite(
         proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth,
         binning, h, w,
     )
+    if row_band is not None:
+        planes = planes[:, row_band[0] * TILE:row_band[1] * TILE]
     t_final = planes[3]
     image = planes[:3].permute(1, 2, 0) + t_final[..., None] * bg
     return RenderOutput(

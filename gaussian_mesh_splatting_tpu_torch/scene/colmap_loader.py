@@ -1,7 +1,7 @@
 """COLMAP sparse-reconstruction parsers (binary + text) and the binary
-writers, pure numpy (a copy of `gaussian_mesh_splatting_tpu/scene/colmap_loader.py`,
-in the same byte layout; the JAX package's optional native points3D parser is
-not carried over).
+writers (a copy of `gaussian_mesh_splatting_tpu/scene/colmap_loader.py`, in
+the same byte layout; points3D.bin through the `fastio` C extension where it
+builds, `io/native.py`).
 
 Parses the public COLMAP format (cameras/images/points3D in `.bin`/`.txt`).
 Only the fields the pipeline uses are retained.
@@ -115,7 +115,15 @@ def read_extrinsics_binary(path: str) -> dict[int, ColmapImage]:
 
 
 def read_points3D_binary(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (xyz (N,3), rgb (N,3) uint8, error (N,1))."""
+    """Returns (xyz (N,3), rgb (N,3) uint8, error (N,1)): parsed by the
+    `fastio` C extension where it builds (`io/native.py`), else record by
+    record."""
+    from ..io.native import fastio
+
+    nat = fastio()
+    if nat is not None:
+        with open(path, "rb") as f:
+            return nat.parse_colmap_points3d(f.read())
     with open(path, "rb") as f:
         (n,) = _read(f, 8, "Q")
         xyz = np.empty((n, 3))

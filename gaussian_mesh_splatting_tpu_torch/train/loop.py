@@ -47,6 +47,8 @@ def make_train_step(
     backend: str = "auto",
     render_kwargs: dict | None = None,
     mark: Callable[[str], None] | None = None,
+    render_fn: Callable | None = None,
+    reduce=None,
 ) -> Callable:
     """Build the step fn: (state, cam, gt, bg) -> (state, metrics).
 
@@ -57,9 +59,27 @@ def make_train_step(
     device, except `overflow`, a host int. `mark`, if given, is called with
     "start" and then with the name of each stage as it ends ("to_bag",
     "render", "loss", "backward", "adam", "stats"): a timing hook, e.g. one
-    that records a CUDA event."""
+    that records a CUDA event.
+
+    The parallel modes (`parallel/`) run this same step with two hooks:
+    `render_fn(bag, cam, bg, mean2d_offset)` renders this process's portion
+    and returns the assembled RenderOutput (default: `render` of the whole
+    camera with `backend` and `render_kwargs`), and `reduce` joins the
+    processes' work (default: nothing to join;
+    `parallel.data_parallel.GroupReduction`):
+      * `reduce.portions(grads, g_offset)`, right after the backward: the
+        portion's param and mean2d_offset gradients -> the camera's;
+      * `reduce.cameras(grads, adds, metrics)`, before Adam: the param
+        gradients, the statistics' increments (grad_add, denom_add, radii)
+        and the metrics of this process's camera -> the step's;
+      * `reduce.overflow(n)`: the pairs this process dropped -> the step's,
+        the same on every process."""
     render_kwargs = render_kwargs or {}
     mark = mark or (lambda stage: None)
+    if render_fn is None:
+        def render_fn(bag, cam, bg, mean2d_offset):
+            return render(bag, cam, bg, sh_degree=sh_degree_max, backend=backend,
+                          mean2d_offset=mean2d_offset, **render_kwargs)
 
     def train_step(state: TrainState, cam: Camera, gt: torch.Tensor, bg: torch.Tensor):
         mark("start")
@@ -68,8 +88,7 @@ def make_train_step(
                              requires_grad=True)
         bag = _masked_bag(model, state)
         mark("to_bag")
-        out = render(bag, cam, bg, sh_degree=sh_degree_max, backend=backend,
-                     mean2d_offset=offset, **render_kwargs)
+        out = render_fn(bag, cam, bg, offset)
         mark("render")
         loss, l1 = photometric_loss(out.image, gt, config.lambda_dssim)
         mark("loss")
@@ -77,11 +96,12 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark("backward")
-        apply_lr_schedules(state.optimizer, state.step)
-        state.optimizer.step()
-        mark("adam")
-
         with torch.no_grad():
+            params = [p for group in state.optimizer.param_groups for p in group["params"]
+                      if p.grad is not None]
+            grads, g_offset = [p.grad for p in params], offset.grad
+            if reduce is not None:
+                grads, g_offset = reduce.portions(grads, g_offset)
             # densification statistics (gaussian_model.py:416-418): the
             # norm of the NDC-space positional gradient of visible rows; the
             # reference's dL/dmean2D is the pixel gradient scaled by
@@ -89,20 +109,29 @@ def make_train_step(
             visible = out.radii > 0
             scale_vec = torch.tensor([0.5 * cam.width, 0.5 * cam.height],
                                      dtype=torch.float32, device=offset.device)
-            gnorm = torch.linalg.vector_norm(offset.grad * scale_vec, dim=-1)
+            gnorm = torch.linalg.vector_norm(g_offset * scale_vec, dim=-1)
+            adds = (torch.where(visible, gnorm, 0.0), visible.to(torch.float32),
+                    out.radii.to(torch.float32))
+            metrics = {"loss": loss.detach(), "l1": l1.detach(), "psnr": psnr(out.image, gt),
+                       "num_visible": visible.sum()}
+            if reduce is not None:
+                grads, adds, metrics = reduce.cameras(grads, adds, metrics)
+                for p, g in zip(params, grads):
+                    p.grad = g
+        apply_lr_schedules(state.optimizer, state.step)
+        state.optimizer.step()
+        mark("adam")
+
+        with torch.no_grad():
+            grad_add, denom_add, radii = adds
             stats = state.stats
-            stats.grad_accum += torch.where(visible, gnorm, 0.0)
-            stats.denom += visible.to(torch.float32)
-            torch.maximum(stats.max_radii, out.radii.to(torch.float32), out=stats.max_radii)
-            metrics = {
-                "loss": loss.detach(),
-                "l1": l1.detach(),
-                "psnr": psnr(out.image, gt),
-                "num_visible": visible.sum(),
-                # pairs dropped by the capacity-bounded binning this step:
-                # nonzero means the training loop must grow pair_capacity
-                "overflow": out.overflow if out.overflow is not None else 0,
-            }
+            stats.grad_accum += grad_add
+            stats.denom += denom_add
+            torch.maximum(stats.max_radii, radii, out=stats.max_radii)
+        # pairs dropped by the capacity-bounded binning this step: nonzero
+        # means the training loop must grow pair_capacity
+        overflow = out.overflow if out.overflow is not None else 0
+        metrics["overflow"] = overflow if reduce is None else reduce.overflow(overflow)
         mark("stats")
         state.step += 1
         return state, metrics
