@@ -106,7 +106,8 @@ Phases (any failure exits nonzero; nothing is caught):
      all-reduce's times, `measure_scaling` at widths 1 and 2; B1 alone on
      each row band beside the whole image; (h) one rank on NCCL: (a), (b)
      and 20 steps of rows, gaussians and DP, their collectives on NCCL in a
-     group of one, held against the unsharded render and step; then a
+     group of one, held against the unsharded render and step per param key
+     (each mode's key with the largest first-step error logged); then a
      world-1 `torchrun` launch of `apps.train --shard gaussians` (a group of
      one trains as one device); (i) the `fastio` extension's
      points3D.bin and PLY reads equal the numpy readers' byte for byte, and
@@ -1710,7 +1711,9 @@ def unsharded_references(ns, dev) -> list:
 
 def check_first_step(label: str, got: dict, grads: dict, refs: list) -> dict:
     """A parallel step's first step against the unsharded steps `refs` (one:
-    that step; two: their camera mean, the statistics summed, radii max)."""
+    that step; more: their camera mean, the statistics summed, radii max).
+    Returns every param key's gradient error (x max|g| of that key's
+    reference) and the key with the largest."""
     import torch
 
     want_loss = sum(r["loss"] for r in refs) / len(refs)
@@ -1731,8 +1734,9 @@ def check_first_step(label: str, got: dict, grads: dict, refs: list) -> dict:
     loss_err = abs(got["first_loss"] - want_loss) / want_loss
     if loss_err > 1e-4:
         raise SystemExit(f"[8] {label}: loss {got['first_loss']} vs {want_loss}")
-    return {"max_grad_err_rel": max(grad_err.values()), "grad_accum_err": stats_err,
-            "loss_rel_err": loss_err}
+    worst = max(grad_err, key=grad_err.get)
+    return {"max_grad_err_rel": grad_err[worst], "worst_key": worst, "grad_err_rel": grad_err,
+            "grad_accum_err": stats_err, "loss_rel_err": loss_err}
 
 
 def check_run(label: str, ranks: list, want_launches: tuple[int, int]) -> None:
@@ -1878,6 +1882,9 @@ def parallel_and_native(ns, dev, card: str) -> dict:
         f"{one['render']['gaussians']['max_abs_err']:.3g}; {PAR_STEPS} steps of each mode, "
         f"first step vs make_train_step: {json.dumps(out['nccl_steps'])}; "
         f"{out['nccl_s']:.1f} s")
+    for mode, errs in out["nccl_steps"].items():
+        log(f"[8h] nccl {mode}: largest first-step gradient error on {errs['worst_key']} "
+            f"({errs['max_grad_err_rel']:.3g} x max|g|)")
     t0 = time.perf_counter()
     tr_dir = os.path.join(WORK, "torchrun_model")
     proc = subprocess.run(

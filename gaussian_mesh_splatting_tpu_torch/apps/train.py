@@ -48,7 +48,9 @@ gradients; `rows` and `gaussians` render one camera a step in portions (tile
 rows; depth slabs of the Gaussians) and reassemble it. The processes join
 through `parallel.multihost.initialize` (NCCL on the card; gloo with
 `--device cpu`). Every rank runs the same loop on the same replicated state,
-densifying with the same seeded generator; only rank 0 writes the model
+densifying with the same seeded generator, and at the end every rank holds
+its state's digest to the others' (`parallel.multihost.check_replicas`; a
+rank that drifted is an error); only rank 0 writes the model
 directory (cfg_args, input.ply, cameras.json, metrics, snapshots,
 checkpoints, debug dumps, the profile trace), prints, evaluates the test
 views and serves the viewer. Meanwhile the other ranks wait in the next
@@ -267,6 +269,7 @@ def _train(args, profile_range: tuple[int, int] | None,
     from ..io.snapshots import save_snapshot
     from ..models import model_for
     from ..parallel import make_dp_train_step, make_sharded_train_step
+    from ..parallel.multihost import check_replicas
     from ..scene import Scene
     from ..train import (
         densify_and_prune,
@@ -541,6 +544,8 @@ def _train(args, profile_range: tuple[int, int] | None,
     if cfg.iterations not in args.save_iterations and main_rank:
         save_snapshot(args.gs_type, model, tstate.model_state(),
                       snapshot_dir(args.model_path, cfg.iterations))
+    if world > 1:
+        say(check_replicas(tstate, device))
     if logger is not None:
         logger.close()
     say(f"training done in {time.time() - t_start:.0f}s")

@@ -16,7 +16,9 @@ processes in a test, pass them:
     multihost.initialize("file:///tmp/store", world_size=2, rank=r, backend="gloo")
 
 `measure_scaling` times a step at several process counts and reports its
-efficiency against the narrowest.
+efficiency against the narrowest. `check_replicas` holds the replicated
+training state of every process to one digest: the parallel modes keep it
+bit-identical, and a process that drifted would train another model.
 """
 from __future__ import annotations
 
@@ -170,3 +172,51 @@ def _collective_device() -> torch.device:
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def device_label(device: torch.device) -> str:
+    """The device and, for a card, which physical card it is: its PCI address
+    as nvidia-smi prints it (domain:bus:device.function), or its UUID where
+    torch does not report the address."""
+    if device.type != "cuda":
+        return str(device)
+    props = torch.cuda.get_device_properties(device)
+    if getattr(props, "pci_bus_id", None) is None:
+        return f"cuda:{device.index} ({props.uuid})"
+    return (f"cuda:{device.index} ({props.pci_domain_id:08X}:{props.pci_bus_id:02X}:"
+            f"{props.pci_device_id:02X}.0)")
+
+
+@torch.no_grad()
+def state_digest(tstate) -> int:
+    """A digest of a TrainState's bits: the params, the Adam moments, the
+    alive mask, the densification statistics and the step count, each word
+    weighted by its position. Two processes whose digests agree hold the
+    same state (up to collisions)."""
+    from ..train.state import param_leaves
+
+    leaves = [t for value in tstate.params.values() for t in param_leaves(value)]
+    moments = [tstate.optimizer.state[p][k] for p in leaves for k in ("exp_avg", "exp_avg_sq")
+               if k in tstate.optimizer.state.get(p, {})]
+    stats = [tstate.stats.grad_accum, tstate.stats.denom, tstate.stats.max_radii]
+    words = torch.cat([t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+                       for t in leaves + moments + stats]
+                      + [tstate.alive.reshape(-1).to(torch.int64)])
+    weights = torch.arange(1, words.numel() + 1, device=words.device) % 65521
+    return int((words * weights).sum()) * 31 + tstate.step
+
+
+def check_replicas(tstate, device: torch.device) -> str:
+    """Every process of the job compares its state's digest with the
+    others'; raises RuntimeError naming each process's digest where they
+    differ. Returns a line that names each process's device and the digest."""
+    n = dist.get_world_size()
+    mine = (state_digest(tstate), device_label(device))
+    every = [None] * n
+    dist.all_gather_object(every, mine)
+    digests = [d for d, _ in every]
+    if len(set(digests)) != 1:
+        raise RuntimeError("the processes' training states differ: " + ", ".join(
+            f"rank {r} on {label}: {d}" for r, (d, label) in enumerate(every)))
+    return (f"replicas bit-identical on {n} processes (state digest {digests[0]}): "
+            + ", ".join(f"rank {r} on {label}" for r, (_, label) in enumerate(every)))

@@ -211,6 +211,56 @@ def train_steps(rank, world, *, mode, scene, cams, gts, bg, steps=1, n_model=2,
     return out
 
 
+def merge_and_kink(rank, world, *, scene, size, bg, gts):
+    """At world 1: the Gaussian-sharded render beside the unsharded one and
+    the slab's own pre-background rgb and alpha (camera 0 of a 2-ring,
+    size x size); then, for each GT of `gts` ({name: (kind, array)}, kind
+    "image+": the unsharded image plus the array, "const": the array), the
+    first step's gradients of the gaussians-sharded and the unsharded
+    train step (gs_flat, SH 0)."""
+    from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+    from gaussian_mesh_splatting_tpu_torch.train import make_train_step
+
+    mesh = create_mesh()
+    cam = make_camera(*ring_pose(0, 2), 0.9, 0.9, size, size, device="cpu")
+    bg = torch.tensor(bg)
+    with torch.no_grad():
+        bag = _bag(_leaf_params(scene), scene)
+        args = (bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam)
+        kw = dict(shs=bag.shs, sh_degree=0, alive=bag.alive)
+        full = rasterize_cuda(*args, bg=bg, **kw)
+        part = rasterize_cuda(*args, bg=torch.zeros(3), **kw)
+        sharded = render_gaussian_sharded(bag, cam, bg, mesh, sh_degree=0)
+    out = {"sharded": sharded, "full": full.image, "rgb": part.image, "alpha": part.alpha}
+    cfg = optimization_config("gs_flat")
+    steps = {"sharded": make_sharded_train_step(flat, cfg, 0, mesh, shard="gaussians"),
+             "full": make_train_step(flat, cfg, 0)}
+    for name, (kind, arr) in gts.items():
+        gt = full.image + torch.tensor(arr) if kind == "image+" else torch.tensor(arr)
+        out[name] = {"gt": gt}
+        for label, step in steps.items():
+            state = make_train_state(state_from_numpy("gs_flat", scene, device="cpu"), cfg)
+            step(state, cam, gt, bg)
+            out[name][label] = {k: p.grad.clone() for k, p in state.params.items()}
+    return out
+
+
+def replica_check(rank, world, *, scene, drift_rank):
+    """`multihost.check_replicas` on a fresh gs_flat state, after rank
+    `drift_rank` (None: no rank) moved one param by an ulp: its line, or
+    the RuntimeError's message."""
+    state = make_train_state(state_from_numpy("gs_flat", scene, device="cpu"),
+                             optimization_config("gs_flat"))
+    if rank == drift_rank:
+        with torch.no_grad():
+            x = state.params["xyz"]
+            x[0, 0] = torch.nextafter(x[0, 0], torch.tensor(np.inf))
+    try:
+        return {"line": multihost.check_replicas(state, torch.device("cpu"))}
+    except RuntimeError as e:
+        return {"error": str(e)}
+
+
 def meshes(rank, world, *, batch):
     """The 2-D mesh's groups and each rank's camera slice."""
     mesh2 = create_mesh2d(world // 2, 2)
