@@ -112,9 +112,18 @@ Phases (any failure exits nonzero; nothing is caught):
      one trains as one device); (i) the `fastio` extension's
      points3D.bin and PLY reads equal the numpy readers' byte for byte, and
      their times;
-  9. print the kernels line (with each kernel's launches on the render path,
-     on each training path, `apps.render_flame` and each path of phase 7 (per
-     rank: phase 8),
+  9. hold the gradient at scale (`tools_torch_verify_grads.py`): (a) the
+     oracle folded in checkpointed groups (`scan_chunk`) against its flat
+     fold on the card, 96 Gaussians at 200x50: forward bit-equal, gradients
+     within CHUNK_TOL * max|g|; (b) the CUDA path's loss and gradients
+     against the chunked oracle's at ORACLE_CASE (every key within
+     GRAD_TOL * max|g|, the losses within 1e-6 relative); (c) two-sided
+     finite differences of the loss along gradient-aligned directions at
+     100,000 Gaussians, 800x800, eps 2e-3 (each within 0.1 relative); B1
+     and B2 launches counted from 0 over (b) and (c);
+ 10. print the kernels line (with each kernel's launches on the render path,
+     on each training path, `apps.render_flame`, each path of phase 7 (per
+     rank: phase 8) and phase 9,
      its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
      inputs, each bound from the operations that this run's data needs),
      the card's name and power limit, and last the device line.
@@ -214,6 +223,10 @@ PAR_STATS_TOL = 1e-5  # grad_accum, absolute; denom and max_radii exact
 PAR_SATURATION_TOL = 2e-3  # Gaussian-sharded render vs unsharded, per pixel
 SATURATED_T = 1.5e-4  # a pixel whose final T is at most this has saturated
 TORCHRUN_ITERS = 5
+# phase 9: gradient conformance at scale (tools_torch_verify_grads.py)
+CHUNK = 17  # the chunked oracle's group on the card, against its flat fold
+CHUNK_TOL = 1e-6  # its gradients against the flat fold's, x max|g| per key
+ORACLE_CASE = (4_000, 256, 256)  # Gaussians, width, height: CUDA path vs the chunked oracle
 
 
 def log(msg: str) -> None:
@@ -789,43 +802,105 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
     return res
 
 
-def oracle_gradients(cam) -> float:
-    """Gradients of the whole CUDA rasterizer w.r.t. means3d, scales,
-    rotations, opacities, shs and mean2d_offset against the torch oracle's
-    autograd, on 96 Gaussians at 200x50, with a loss that touches image,
-    depth and alpha. Returns the largest error relative to each gradient's
-    max |g|."""
+def small_scene_grads(raster, cam, **kw):
+    """(output, gradients w.r.t. means3d, scales, rotations, opacities, shs
+    and mean2d_offset) of `raster` on 96 dense Gaussians (seed 5), with a
+    loss that touches image, depth and alpha."""
     import torch
 
+    dev = cam.world_view.device
+    small = dense_scene(96, 5, dev)
+    target = torch.as_tensor(np.random.default_rng(6).random((cam.height, cam.width, 3)),
+                             dtype=torch.float32, device=dev)
+    p = {k: getattr(small, k).detach().clone().requires_grad_(True)
+         for k in ("xyz", "scaling", "rotation", "opacity", "shs")}
+    offset = torch.zeros((96, 2), device=dev, requires_grad=True)
+    out = raster(p["xyz"], p["scaling"], p["rotation"], p["opacity"], cam,
+                 bg=torch.tensor([0.1, 0.2, 0.3], device=dev), shs=p["shs"],
+                 sh_degree=2, alive=small.alive, mean2d_offset=offset, **kw)
+    loss = (torch.mean(torch.abs(out.image - target)) + 0.1 * torch.mean(out.depth)
+            + 0.05 * torch.mean(out.alpha))
+    loss.backward()
+    return out, {**{k: v.grad for k, v in p.items()}, "mean2d_offset": offset.grad}
+
+
+def worst_grad_err(label: str, got: dict, want: dict, tol: float) -> float:
+    """Largest max err / max|g| over the keys; exits if a key is not finite,
+    has no gradient, or is off by more than `tol` x max|g|."""
+    import torch
+
+    worst = 0.0
+    for k, ref in want.items():
+        scale = float(ref.abs().max())
+        err = float((got[k] - ref).abs().max())
+        if not (torch.isfinite(got[k]).all() and scale > 0 and err <= tol * scale):
+            raise SystemExit(f"{label}: the gradient of {k} is off: err {err}, max|g| {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def oracle_gradients(cam) -> float:
+    """Gradients of the whole CUDA rasterizer against the torch oracle's
+    autograd on `small_scene_grads`' scene at 200x50. Returns the largest
+    error relative to each gradient's max |g|."""
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_reference import rasterize_reference
 
-    small = dense_scene(96, 5, cam.world_view.device)
-    target = torch.as_tensor(np.random.default_rng(6).random((cam.height, cam.width, 3)),
-                             dtype=torch.float32, device=cam.world_view.device)
+    return worst_grad_err("CUDA rasterizer vs the oracle",
+                          small_scene_grads(rasterize_cuda, cam)[1],
+                          small_scene_grads(rasterize_reference, cam)[1], GRAD_TOL)
 
-    def grads(raster):
-        p = {k: getattr(small, k).detach().clone().requires_grad_(True)
-             for k in ("xyz", "scaling", "rotation", "opacity", "shs")}
-        offset = torch.zeros((96, 2), device=p["xyz"].device, requires_grad=True)
-        out = raster(p["xyz"], p["scaling"], p["rotation"], p["opacity"], cam,
-                     bg=torch.tensor([0.1, 0.2, 0.3], device=p["xyz"].device), shs=p["shs"],
-                     sh_degree=2, alive=small.alive, mean2d_offset=offset)
-        loss = (torch.mean(torch.abs(out.image - target)) + 0.1 * torch.mean(out.depth)
-                + 0.05 * torch.mean(out.alpha))
-        loss.backward()
-        return {**{k: v.grad for k, v in p.items()}, "mean2d_offset": offset.grad}
 
-    g_fast, g_ref = grads(rasterize_cuda), grads(rasterize_reference)
-    worst = 0.0
-    for k, ref in g_ref.items():
-        scale = float(ref.abs().max())
-        err = float((g_fast[k] - ref).abs().max())
-        if not (torch.isfinite(g_fast[k]).all() and scale > 0 and err <= GRAD_TOL * scale):
-            raise SystemExit(f"CUDA rasterizer gradient of {k} disagrees with the oracle: "
-                             f"err {err}, max|g| {scale}")
-        worst = max(worst, err / scale)
-    return worst
+def chunked_oracle_check(cam) -> float:
+    """The oracle folded in checkpointed groups of CHUNK against its flat
+    fold on the card, on `small_scene_grads`' scene: image, depth and alpha
+    bit-equal, every gradient within CHUNK_TOL * max|g|. Returns the largest
+    gradient error relative to max|g|."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_reference import rasterize_reference
+
+    flat, g_flat = small_scene_grads(rasterize_reference, cam)
+    chunked, g_chunked = small_scene_grads(rasterize_reference, cam, scan_chunk=CHUNK)
+    for k in ("image", "depth", "alpha"):
+        if not torch.equal(getattr(flat, k), getattr(chunked, k)):
+            raise SystemExit(f"the chunked oracle's {k} is not bit-equal to the flat fold's")
+    return worst_grad_err("chunked oracle vs its flat fold", g_chunked, g_flat, CHUNK_TOL)
+
+
+def gradient_conformance(dev) -> dict:
+    """Phase 9: (a) `chunked_oracle_check` on 96 Gaussians at 200x50; (b)
+    the CUDA path's loss and gradients against the chunked oracle's
+    (`tools_torch_verify_grads.oracle_grad_check`) at ORACLE_CASE; (c) its
+    finite differences (`fd_checks`) at the full 100,000 Gaussians, 800x800,
+    eps 2e-3. The launches of (b) and (c) are counted from 0 and checked:
+    B1 once a loss, B2 once a gradient. Returns {"fwd", "bwd"} and the
+    reports."""
+    from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+
+    import tools_torch_verify_grads as vg
+
+    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.8, 200, 50, device=dev)
+    chunk_err = chunked_oracle_check(cam)
+    log(f"[9a] chunked oracle (scan_chunk {CHUNK}) vs its flat fold on the card (96 Gaussians, "
+        f"200x50): forward bit-equal, gradients max err / max|g| {chunk_err:.3g} "
+        f"(bound {CHUNK_TOL})")
+    launch_counts(reset=True)
+    oracle = vg.oracle_grad_check(*ORACLE_CASE, device=dev)
+    fd = vg.fd_checks(eps=vg.FD_EPS[:1], device=dev)
+    fwd, bwd = launch_counts()
+    log(f"[9b] CUDA path vs the chunked oracle ({ORACLE_CASE[0]} Gaussians, "
+        f"{ORACLE_CASE[1]}x{ORACLE_CASE[2]}, tolerance {GRAD_TOL}*max|g| per key): "
+        f"{json.dumps(oracle)}")
+    log(f"[9c] finite differences (100,000 Gaussians, 800x800, eps {vg.FD_EPS[0]}, bound "
+        f"{vg.FD_TOL}): {json.dumps(fd)}")
+    if not oracle["ok"]:
+        raise SystemExit("the CUDA path's gradients disagree with the chunked oracle's")
+    if not fd["ok"]:
+        raise SystemExit("a finite difference disagrees with the CUDA path's gradient")
+    want_fwd = 1 + 1 + 2 * len(fd["directions"])  # (b)'s loss, (c)'s gradient, each +-eps
+    expect_launches("phase 9 (b, c)", fwd, bwd, want_fwd, 2)
+    return {"fwd": fwd, "bwd": bwd, "chunk_err": chunk_err, "oracle": oracle, "fd": fd}
 
 
 def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12, model=None) -> dict:
@@ -2512,7 +2587,13 @@ def main() -> int:
     log(f"    phase 8: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 9. output lines ----------------------------------------------------
+    # ---- 9. gradient conformance at scale ------------------------------------
+    t0 = time.perf_counter()
+    phase9 = gradient_conformance(dev)
+    log(f"    phase 9: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 10. output lines ---------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -2529,6 +2610,7 @@ def main() -> int:
         "launches_render_flame": render_flame_launches,
         **{f"launches_{k}": v for k, v in phase7["fwd"].items()},
         **{f"launches_{k}_per_rank": v for k, v in phase8["fwd"].items()},
+        "launches_grad_conformance": phase9["fwd"],
         "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"],
                            flame_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
@@ -2557,6 +2639,10 @@ def main() -> int:
         "launches_render_flame": 0,
         **{f"launches_{k}": v for k, v in phase7["bwd"].items()},
         **{f"launches_{k}_per_rank": v for k, v in phase8["bwd"].items()},
+        "launches_grad_conformance": phase9["bwd"],
+        "oracle_rel_err_at_scale": phase9["oracle"]["worst_rel_err"],
+        "oracle_pairs_at_scale": phase9["oracle"]["n_pairs"],
+        "fd_rel_err_full_scale": phase9["fd"]["worst_rel_err"],
         "max_abs_err": max(full_bwd["photometric"]["max_abs_err"],
                            gs_bwd["photometric"]["max_abs_err"],
                            flame_bwd["photometric"]["max_abs_err"]),

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import Camera
 from .binning import tile_rect
@@ -37,6 +38,34 @@ class RenderOutput(NamedTuple):
     overflow: int | None = None  # pairs dropped (fast path only)
 
 
+def _fold(carry, px, py, tile_x, tile_y, rect, mean2d, conic, opacity, color, depth):
+    """Composite one run of depth-ordered Gaussians (row j of each attribute
+    and of the integer binning rect) onto the carry (T, C, D, done)."""
+    T, C, D, done = carry
+    xmin, xmax, ymin, ymax = rect
+    for j in range(mean2d.shape[0]):
+        in_rect = (
+            (tile_x >= xmin[j]) & (tile_x < xmax[j])
+            & (tile_y >= ymin[j]) & (tile_y < ymax[j])
+        )
+        a, b, c = conic[j]
+        dx = mean2d[j, 0] - px
+        dy = mean2d[j, 1] - py
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        alpha = torch.minimum(opacity[j] * torch.exp(power), power.new_tensor(ALPHA_MAX))
+        contributes = in_rect & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        alpha = torch.where(contributes, alpha, 0.0)
+        test_T = T * (1.0 - alpha)
+        terminator = contributes & (test_T < T_EPS)
+        include = contributes & ~done & ~terminator
+        w = torch.where(include, T * alpha, 0.0)
+        C = C + w[..., None] * color[j]
+        D = D + w * depth[j]
+        T = torch.where(include, test_T, T)
+        done = done | terminator
+    return T, C, D, done
+
+
 def _composite_sequential(
     proj: ProjectedGaussians,
     order: torch.Tensor,
@@ -45,8 +74,16 @@ def _composite_sequential(
     tile_h: int,
     tile_w: int,
     bg: torch.Tensor,
+    scan_chunk: int | None = None,
 ):
-    """Sequential front-to-back composite over depth-sorted Gaussians."""
+    """Sequential front-to-back composite over depth-sorted Gaussians.
+
+    With `scan_chunk`, the Gaussians are folded in groups of that many (the
+    last may be shorter), each under a non-reentrant checkpoint: autograd
+    keeps one (T, C, D, done) carry per group and recomputes the group's
+    steps in the backward pass, where the flat fold keeps about ten (H, W)
+    tensors for every Gaussian. The arithmetic and its order are the same,
+    so the forward is bit-equal to the flat fold."""
     dev = proj.mean2d.device
     px = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
     py = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
@@ -55,37 +92,31 @@ def _composite_sequential(
     n_tiles_x = -(-width // tile_w)
     n_tiles_y = -(-height // tile_h)
     with torch.no_grad():  # integer rects: no gradient flows through them
-        xmin, xmax, ymin, ymax = tile_rect(
+        rect = tile_rect(
             proj.mean2d, proj.radius_x, tile_h, tile_w, n_tiles_y, n_tiles_x,
             radius_y=proj.radius_y,
         )
     # a Gaussian with an empty rect or culled composites nothing: skip it
-    touches = proj.valid & (xmax > xmin) & (ymax > ymin)
+    touches = proj.valid & (rect[1] > rect[0]) & (rect[3] > rect[2])
+    ids = order[touches[order]]
 
-    T = torch.ones((height, width), device=dev)
-    C = torch.zeros((height, width, 3), device=dev)
-    D = torch.zeros((height, width), device=dev)
-    done = torch.zeros((height, width), dtype=torch.bool, device=dev)
-    for i in order[touches[order]].tolist():
-        in_rect = (
-            (tile_x >= xmin[i]) & (tile_x < xmax[i])
-            & (tile_y >= ymin[i]) & (tile_y < ymax[i])
-        )
-        a, b, c = proj.conic[i]
-        dx = proj.mean2d[i, 0] - px
-        dy = proj.mean2d[i, 1] - py
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.minimum(proj.opacity[i] * torch.exp(power), power.new_tensor(ALPHA_MAX))
-        contributes = in_rect & (power <= 0.0) & (alpha >= ALPHA_MIN)
-        alpha = torch.where(contributes, alpha, 0.0)
-        test_T = T * (1.0 - alpha)
-        terminator = contributes & (test_T < T_EPS)
-        include = contributes & ~done & ~terminator
-        w = torch.where(include, T * alpha, 0.0)
-        C = C + w[..., None] * proj.color[i]
-        D = D + w * proj.depth[i]
-        T = torch.where(include, test_T, T)
-        done = done | terminator
+    carry = (
+        torch.ones((height, width), device=dev),
+        torch.zeros((height, width, 3), device=dev),
+        torch.zeros((height, width), device=dev),
+        torch.zeros((height, width), dtype=torch.bool, device=dev),
+    )
+    attrs = (proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth)
+    step = scan_chunk or max(len(ids), 1)
+    for lo in range(0, len(ids), step):
+        group = ids[lo:lo + step]
+        args = (carry, px, py, tile_x, tile_y, tuple(r[group] for r in rect),
+                *(x[group] for x in attrs))
+        if scan_chunk is None:
+            carry = _fold(*args)
+        else:
+            carry = checkpoint(_fold, *args, use_reentrant=False)
+    T, C, D, _ = carry
     return C + T[..., None] * bg, D, 1.0 - T
 
 
@@ -105,23 +136,28 @@ def rasterize_reference(
     antialiasing: bool = False,
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
+    radius_mode: str = "tight",
     tile_size: tuple[int, int] = (16, 16),
+    scan_chunk: int | None = None,
 ) -> RenderOutput:
     """Render one camera view with the oracle (see module docstring).
     Exactly one of `shs` / `colors` is used, as in the JAX package. It is
     differentiable by autograd, which gives the reference gradients;
     `mean2d_offset` (zeros (N, 2)) exposes the screen-space positional
-    gradient."""
+    gradient. `radius_mode` picks the binning rectangle (`preprocess`);
+    `scan_chunk` folds the Gaussians in checkpointed groups of that many,
+    which bounds autograd's memory at scale and changes no result."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
         scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
         antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
-        radius_mode="tight",
+        radius_mode=radius_mode,
     )
     order = torch.argsort(torch.where(proj.valid, proj.depth, torch.inf), stable=True)
     image, depth, alpha = _composite_sequential(
         proj, order, cam.height, cam.width, tile_size[0], tile_size[1], bg,
+        scan_chunk=scan_chunk,
     )
     return RenderOutput(
         image=image,

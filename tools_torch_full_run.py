@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
 """The port's run at the real schedule on one CUDA card: train -> render ->
-metrics of the at-scale `gs_mesh` scene.
+metrics of the at-scale scene, as `gs_mesh` or as `gs` with densification.
 
-    python3 tools_torch_full_run.py [--iterations 30000] [--out build/full_run/result.json]
+    python3 tools_torch_full_run.py [--gs_type gs_mesh|gs] [--iterations 30000]
+                                    [--quick] [--out build/full_run/<gs_type>.json]
 
 Writes a Blender_Mesh dataset under build/full_run/: the repo's 5120-face
 lumpy icosphere (chip_smoke.py's `icosphere_mesh`), 100 train and 20 test
 800x800 views on chip_smoke.py's camera ring, GT rendered by the port from
 the seed-42 teacher (chip_smoke.py's `randomize_state`: random colours and
 view dependence, opacity sigmoid(2.5)) on white. Then, on the card:
-`apps.train --gs_type gs_mesh --num_splats 10 --sh_degree 3
---white_background` for `--iterations` steps (51,200 Gaussians, constant
-learning rates, no densification: the reference's gs_mesh configuration),
-with test evals along the way, `apps.render --skip_train` and
-`apps.metrics`. Prints and writes one JSON object: the eval curve, the
-metrics CLI's SSIM / PSNR / LPIPS, the wall times and the card's name and
-power limit. The GT comes from the port's own renderer, so the scores
-compare with the JAX package's (`VERIFY_r5.json`) only approximately.
+
+- `gs_mesh` (the default): `apps.train --gs_type gs_mesh --num_splats 10
+  --sh_degree 3 --white_background` (51,200 Gaussians, constant learning
+  rates, no densification: the reference's gs_mesh configuration);
+- `gs`: the dataset without `points3d.ply`, so that the Blender reader makes
+  its 100,000 seeded points, and `apps.train --gs_type gs --sh_degree 3
+  --white_background --capacity_mult 4` (400,000 rows) at the default
+  density-control schedule: 144 densify events from step 600 to 14,900,
+  opacity resets at 500 (white background) and every 3,000 steps to 12,000,
+  the 20-px screen-size prune after step 3,000 (the JAX package's
+  `tools_verify_scale.py` `gs` leg);
+
+for `--iterations` steps (`--quick`: 600, evals at 300 and 600) with the
+JAX leg's test evals, then `apps.render --skip_train` and `apps.metrics`.
+Prints and writes one JSON object: the eval curve, the population every 100
+steps (`total_points` in the app's metrics.jsonl) and at every densify
+event, the app's step times (`iter_time`, host clock, mean over each
+100-step window), the metrics CLI's SSIM / PSNR / LPIPS, the wall times and
+the card's name and power limit. The GT comes from the port's own renderer,
+so the scores compare with the JAX package's (`VERIFY_r5.json`) only
+approximately. Exits 1 if a loss or score is not finite or, for `gs`, if
+the population falls below 1,000 after the first event or the last eval's
+PSNR is below the one at step 2,000.
 """
 from __future__ import annotations
 
@@ -24,6 +40,7 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -36,6 +53,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "full_run")
 N_TRAIN, N_TEST = 100, 20
 TEST_ITERS = (1000, 2000, 3000, 5000, 7000, 10000, 15000, 20000, 25000, 30000)
+QUICK_ITERS, QUICK_TEST_ITERS = 600, (300, 600)
+GS_POINTS = 100_000  # the Blender reader's seeded cloud without a points3d.ply
+MIN_POPULATION = 1_000  # gs: alive Gaussians after the first densify event, at least
 
 
 def write_dataset(root: str) -> None:
@@ -62,19 +82,90 @@ def write_dataset(root: str) -> None:
             json.dump({"camera_angle_x": cs.FOVX, "frames": frames}, f)
 
 
-def main() -> int:
+def prepare_dataset(data_dir: str, gs_type: str, dev, render_gt: bool = True) -> None:
+    """The dataset of `gs_type`'s run: cameras, mesh and the teacher's GT
+    (`render_gt=False` leaves the placeholder images). The Blender_Mesh
+    reader writes its splat centres as points3d.ply; the `gs` leg removes
+    it, so that its Blender reader makes its own GS_POINTS seeded points."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.scene import Scene
+
+    write_dataset(data_dir)
+    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=cs.NUM_SPLATS, shuffle=False,
+                  device=dev)
+    if render_gt:
+        teacher = cs.randomize_state(scene.init_model_state(mesh_model, cs.SH_DEGREE), seed=42)
+        with torch.no_grad():
+            cs.render_gt_images(scene, mesh_model.to_bag(teacher))
+    if gs_type == "gs":
+        ply = os.path.join(data_dir, "points3d.ply")
+        if os.path.exists(ply):
+            os.remove(ply)
+
+
+def train_argv(gs_type: str, data_dir: str, model_dir: str, iterations: int,
+               test_iters: tuple) -> list[str]:
+    """apps.train's arguments for the leg (the JAX leg's flags; `gs_mesh`
+    adds its splats per face, `gs` names its buffer's multiple)."""
+    argv = ["--gs_type", gs_type, "-s", data_dir, "-m", model_dir, "--eval",
+            "--sh_degree", str(cs.SH_DEGREE), "--white_background",
+            "--iterations", str(iterations),
+            "--test_iterations", *map(str, test_iters), "--save_iterations", str(iterations)]
+    if gs_type == "gs_mesh":
+        argv += ["--num_splats", str(cs.NUM_SPLATS)]
+    else:
+        argv += ["--capacity_mult", "4"]
+    return argv
+
+
+def read_metrics_jsonl(model_dir: str) -> dict:
+    """{tag: [[step, value], ...]} from the app's metrics.jsonl."""
+    series: dict = {}
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        for line in f:
+            d = json.loads(line)
+            step = d.pop("step")
+            for k, v in d.items():
+                series.setdefault(k, []).append([step, v])
+    return series
+
+
+def step_times(iter_time: list, densify_until: int | None = None) -> dict:
+    """Medians of the app's 100-step window means: the whole run and, with
+    `densify_until`, either side of the last densify step."""
+    def med(rows):
+        return statistics.median(v for _, v in rows) if rows else None
+    if densify_until is None:
+        return {"median_ms": med(iter_time)}
+    return {"median_ms": med(iter_time),
+            "median_ms_densifying": med([r for r in iter_time if r[0] <= densify_until]),
+            "median_ms_after_densification": med([r for r in iter_time if r[0] > densify_until])}
+
+
+def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser("tools_torch_full_run")
+    p.add_argument("--gs_type", default="gs_mesh", choices=["gs_mesh", "gs"])
     p.add_argument("--iterations", type=int, default=30_000)
-    p.add_argument("--out", default=os.path.join(WORK, "result.json"))
-    args = p.parse_args()
+    p.add_argument("--quick", action="store_true",
+                   help=f"{QUICK_ITERS} steps, evals at {QUICK_TEST_ITERS}")
+    p.add_argument("--out", default=None, help="default build/full_run/<gs_type>.json")
+    args = p.parse_args(argv)
+    iterations = QUICK_ITERS if args.quick else args.iterations
+    tests = QUICK_TEST_ITERS if args.quick else tuple(t for t in TEST_ITERS if t <= iterations)
+    out_path = args.out or os.path.join(WORK, f"{args.gs_type}.json")
 
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.apps import metrics as metrics_app
     from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
-    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
-    from gaussian_mesh_splatting_tpu_torch.scene import Scene
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.train.config import optimization_config
+
+    def launches() -> list[int]:
+        return [rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches]
 
     if not torch.cuda.is_available():
         print("tools_torch_full_run: no CUDA device", file=sys.stderr)
@@ -85,54 +176,76 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
-    shutil.rmtree(WORK, ignore_errors=True)
-    data_dir, model_dir = os.path.join(WORK, "scene"), os.path.join(WORK, "model")
+    work = os.path.join(WORK, args.gs_type)
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir, model_dir = os.path.join(work, "scene"), os.path.join(work, "model")
     os.makedirs(data_dir)
     t0 = time.perf_counter()
-    write_dataset(data_dir)
-    scene = Scene(data_dir, "gs_mesh", eval=True, num_splats=cs.NUM_SPLATS, shuffle=False,
-                  device=dev)
-    teacher = cs.randomize_state(scene.init_model_state(mesh_model, cs.SH_DEGREE), seed=42)
-    with torch.no_grad():
-        cs.render_gt_images(scene, mesh_model.to_bag(teacher))
+    prepare_dataset(data_dir, args.gs_type, dev)
     data_s = time.perf_counter() - t0
     print(f"dataset: {N_TRAIN} + {N_TEST} views, {cs.SIZE}x{cs.SIZE}, in {data_s:.1f} s",
           flush=True)
 
-    tests = [t for t in TEST_ITERS if t <= args.iterations]
-    t0 = time.perf_counter()
-    res = train_app.main([
-        "--gs_type", "gs_mesh", "-s", data_dir, "-m", model_dir, "--eval",
-        "--num_splats", str(cs.NUM_SPLATS), "--sh_degree", str(cs.SH_DEGREE),
-        "--white_background", "--iterations", str(args.iterations),
-        "--test_iterations", *map(str, tests), "--save_iterations", str(args.iterations)])
+    t0, before = time.perf_counter(), launches()
+    res = train_app.main(train_argv(args.gs_type, data_dir, model_dir, iterations, tests))
     torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    train_s, train_launches = time.perf_counter() - t0, launches()
     render_app.main(["-m", model_dir, "--skip_train"])
     metrics_app.main(["-m", model_dir])
-    eval_s = time.perf_counter() - t0
-    with open(os.path.join(model_dir, "results_gs_mesh.json")) as f:
-        final = json.load(f)[f"ours_{args.iterations}"]["gs_mesh"]
+    eval_s = time.perf_counter() - t0 - train_s
+    after = launches()
+    # [composite_fwd, composite_bwd] launches: apps.train, then apps.render
+    kernel_launches = {"train": [a - b for a, b in zip(train_launches, before)],
+                       "render": [a - b for a, b in zip(after, train_launches)]}
+    with open(os.path.join(model_dir, f"results_{args.gs_type}.json")) as f:
+        final = json.load(f)[f"ours_{iterations}"][args.gs_type]
+    series = read_metrics_jsonl(model_dir)
+    curve = {str(k): v for k, v in res.test_psnr.items()}
     out = {
         "card": card,
-        "scene": {"faces": 5120, "gaussians": 51_200, "size": cs.SIZE, "sh_degree": cs.SH_DEGREE,
-                  "train_views": N_TRAIN, "test_views": N_TEST, "iterations": args.iterations},
-        "test_psnr_curve": {str(k): v for k, v in res.test_psnr.items()},
+        "gs_type": args.gs_type,
+        "scene": {"faces": 5120, "size": cs.SIZE, "sh_degree": cs.SH_DEGREE,
+                  "train_views": N_TRAIN, "test_views": N_TEST, "iterations": iterations,
+                  **({"gaussians": 51_200} if args.gs_type == "gs_mesh" else
+                     {"initial_points": GS_POINTS, "capacity": 4 * GS_POINTS})},
+        "test_psnr_curve": curve,
         "loss_last_100_mean": float(np.mean(res.losses[-100:])),
         "final_metrics_cli": final,
         "dataset_s": data_s,
         "train_s": train_s,
-        "train_ms_per_step": 1e3 * train_s / args.iterations,
+        "train_ms_per_step": 1e3 * train_s / iterations,
         "render_and_metrics_s": eval_s,
-        "finite": bool(np.isfinite(res.losses).all()
-                       and all(np.isfinite(v) for v in (final["SSIM"], final["PSNR"]))),
+        "launches": kernel_launches,
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    ok = bool(np.isfinite(res.losses).all()
+              and all(np.isfinite(v) for v in (final["SSIM"], final["PSNR"])))
+    if args.gs_type == "gs":
+        cfg = optimization_config("gs")
+        events = [{k: int(v) for k, v in e.items()} for e in res.densify_events]
+        points = [[s, int(v)] for s, v in series.get("total_points", [])]
+        after_first = [n for s, n in points if events and s >= events[0]["iteration"]]
+        after_first += [e["n_alive"] for e in events]
+        out.update(
+            points_trajectory=points,
+            densify_events=events,
+            min_population_after_first_event=min(after_first) if after_first else None,
+            final_points=int(res.state.alive.sum()),
+            step_times_app=step_times(series.get("iter_time", []), cfg.densify_until_iter))
+        checks = {f"population_at_least_{MIN_POPULATION}":
+                  bool(after_first) and min(after_first) >= MIN_POPULATION}
+        if "2000" in curve:
+            checks["last_psnr_at_least_psnr_at_2000"] = curve[str(tests[-1])] >= curve["2000"]
+        out["checks"] = checks
+        ok = ok and all(checks.values())
+    else:
+        out["step_times_app"] = step_times(series.get("iter_time", []))
+    out["ok"] = ok
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
-    print(json.dumps(out))
-    return 0 if out["finite"] else 1
+    print(json.dumps({k: v for k, v in out.items() if k not in ("points_trajectory",
+                                                                 "densify_events")}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
