@@ -121,12 +121,27 @@ Phases (any failure exits nonzero; nothing is caught):
      finite differences of the loss along gradient-aligned directions at
      100,000 Gaussians, 800x800, eps 2e-3 (each within 0.1 relative); B1
      and B2 launches counted from 0 over (b) and (c);
- 10. print the kernels line (with each kernel's launches on the render path,
+ 10. `radius_mode="cuda"` on the CUDA path (`radius_mode_cuda`): (a) B1 and
+     B2 on the "cuda" pair sets of the gs_mesh teacher's view and the
+     gs_flame first step against their plain versions (phase 2's bounds)
+     and against "tight" mode: the pairs only "cuda" mode bins composite
+     nothing, the image, T and depth agree within MODE_TOL but at the pixels
+     that only "tight" mode's pairs reach (`reached_pixels`), B2 on the
+     loss's cotangent zeroed there within GRAD_TOL * max|g|, the radii are
+     equal; each mode's pairs and kernel times; (b) a band of tile rows
+     bit-equal to the same rows of the whole "cuda"-mode render, and the
+     overflow count under `pair_capacity`; (c) the 128x128 toy scene
+     (`tools_torch_verify_scene.py`) built on the card and TOY_SMOKE_ITERS
+     steps of `tools_torch_full_run.py --toy_dip`'s leg through apps.train:
+     the loss falls, the test PSNR rises from step 1; launches of (b) and (c)
+     counted from 0 and checked;
+ 11. print the kernels line (with each kernel's launches on the render path,
      on each training path, `apps.render_flame`, each path of phase 7 (per
-     rank: phase 8) and phase 9,
+     rank: phase 8) and phases 9 and 10,
      its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
-     inputs, each bound from the operations that this run's data needs),
-     the card's name and power limit, and last the device line.
+     inputs, each bound from the operations that this run's data needs, and
+     each mode's pairs and times), the card's name and power limit, and
+     last the device line.
 Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 """
 from __future__ import annotations
@@ -227,6 +242,12 @@ TORCHRUN_ITERS = 5
 CHUNK = 17  # the chunked oracle's group on the card, against its flat fold
 CHUNK_TOL = 1e-6  # its gradients against the flat fold's, x max|g| per key
 ORACLE_CASE = (4_000, 256, 256)  # Gaussians, width, height: CUDA path vs the chunked oracle
+# phase 10: radius_mode="cuda" on the CUDA path, and the toy scene's run
+MODE_TOL = (1e-6, 1e-5)  # "cuda" against "tight" mode: r, g, b, T; depth (absolute)
+REACH_CHUNK = 1 << 16  # pairs a pass of `reached_pixels`
+BAND = (20, 30)  # the tile rows of the "cuda"-mode band, of 50
+TOY_SMOKE_ITERS = 500
+TOY_SMOKE_TEST_ITERS = (1, 500)
 
 
 def log(msg: str) -> None:
@@ -480,16 +501,17 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def composite_inputs(bag, cam, sh_degree, row_band=None):
+def composite_inputs(bag, cam, sh_degree, row_band=None, radius_mode="tight"):
     """(projection, binning, the composite's arguments as the plain versions
     take them, the kernels' own layout inputs as the render path makes them);
-    `row_band` bins only those tile rows, as a row-sharded rank does."""
+    `row_band` bins only those tile rows, as a row-sharded rank does;
+    `radius_mode` picks the binning rectangles, as `rasterize_cuda`'s does."""
     from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import TILE, pack_attributes
 
     proj = preprocess(bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam,
-                      shs=bag.shs, sh_degree=sh_degree, alive=bag.alive, radius_mode="tight")
+                      shs=bag.shs, sh_degree=sh_degree, alive=bag.alive, radius_mode=radius_mode)
     n_ty, n_tx = -(-cam.height // TILE), -(-cam.width // TILE)
     binning = bin_gaussians(proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
                             row_band=row_band)
@@ -735,14 +757,16 @@ def photometric_cotangent(planes, teacher, bg):
 
 
 def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
-                          plain_reps=(3, 1), ops: dict | None = None) -> dict:
+                          plain_reps=(3, 1), ops: dict | None = None,
+                          cotangents=("seeded", "photometric")) -> dict:
     """B2 vs its plain version on the same inputs and cotangents, on the
     card: a seeded normal cotangent of all five planes, and the photometric
     loss's cotangent against `teacher` (white background). `plain_reps`: the
     (reps, warm-up calls) of the plain version's timing (with (1, 0) the
     photometric comparison's plain call is the one timed); `ops`: the
     operation counts of `compare_composite` on the same inputs, where it has
-    made them (the replay is long on a large case)."""
+    made them (the replay is long on a large case); `cotangents`: which of
+    the two to compare (each costs a plain call)."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -756,6 +780,7 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
         "seeded": torch.as_tensor(rng.standard_normal((5, h, w)).astype(np.float32), device=dev),
         "photometric": photometric_cotangent(planes, teacher, torch.ones(3, device=dev)),
     }
+    cots = {k: v for k, v in cots.items() if k in cotangents}
     empty = args[5].shape[0] == 0
     res = {"case": label, "pairs": int(args[5].shape[0]), "ok": True}
     for name, cot in cots.items():
@@ -901,6 +926,189 @@ def gradient_conformance(dev) -> dict:
     want_fwd = 1 + 1 + 2 * len(fd["directions"])  # (b)'s loss, (c)'s gradient, each +-eps
     expect_launches("phase 9 (b, c)", fwd, bwd, want_fwd, 2)
     return {"fwd": fwd, "bwd": bwd, "chunk_err": chunk_err, "oracle": oracle, "fd": fd}
+
+
+def pair_tiles(binning):
+    """The tile of every pair of a binning (its pair ranges are in tile
+    order)."""
+    import torch
+
+    n_pairs = binning.pair_gaussian.shape[0]
+    idx = torch.arange(n_pairs, device=binning.tile_end.device)
+    return torch.searchsorted(binning.tile_end.long(), idx, right=True)
+
+
+def reached_pixels(args, tiles, gaussians):
+    """Where the (tile, Gaussian) pairs can composite: an (H, W) bool mask of
+    the pixels at which some pair has power <= 0 and alpha >= 1/255 (the
+    kernels' expressions), and the number of such (pixel, pair)s. In passes
+    of REACH_CHUNK pairs."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import ALPHA_MAX, ALPHA_MIN
+
+    mean2d, conic, opacity = args[0], args[1], args[2]
+    h, w, n_tiles = args[8], args[9], int(args[6].shape[0])
+    dev = mean2d.device
+    px, py, inside = tile_pixels(h, w, n_tiles, dev)
+    mask = torch.zeros(h * w, dtype=torch.bool, device=dev)
+    count = 0
+    for lo in range(0, int(tiles.shape[0]), REACH_CHUNK):
+        t, g = tiles[lo:lo + REACH_CHUNK], gaussians[lo:lo + REACH_CHUNK].long()
+        dx = mean2d[g, 0:1] - px[t].to(torch.float32)
+        dy = mean2d[g, 1:2] - py[t].to(torch.float32)
+        a, b, c = conic[g, 0:1], conic[g, 1:2], conic[g, 2:3]
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        alpha = torch.clamp_max(opacity[g][:, None] * torch.exp(power), ALPHA_MAX)
+        reach = inside[t] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        count += int(reach.sum())
+        mask[(py[t] * w + px[t])[reach]] = True
+    return mask.reshape(h, w), count
+
+
+def radius_modes_agree(label: str, bag, cam, teacher) -> dict:
+    """B1 and B2 in "cuda" mode against "tight" mode on one view, on the
+    card. The modes bin different pair sets: the ones only "cuda" mode bins
+    must composite nothing; the ones only "tight" mode bins may, at the
+    pixels an exact extent reaches past the 3-sigma square's tile rect
+    (`reached_pixels`: with opacity above ~0.35 a Gaussian still has alpha
+    >= 1/255 there). Elsewhere the image, T and depth agree within MODE_TOL,
+    and B2 on the training loss's cotangent zeroed at those pixels within
+    GRAD_TOL * max|g| per column (B1's `nc` indexes different lists). The
+    reported radii are equal. Also each kernel's time in both modes."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_bwd_cuda, composite_fwd_cuda)
+
+    proj_t, bin_t, args_t, lay_t = composite_inputs(bag, cam, SH_DEGREE, radius_mode="tight")
+    proj_c, bin_c, args_c, lay_c = composite_inputs(bag, cam, SH_DEGREE, radius_mode="cuda")
+    if not torch.equal(proj_t.radius, proj_c.radius):
+        raise SystemExit(f"{label}: the reported radii differ between the radius modes")
+    n = bag.num_gaussians
+    tiles_t, tiles_c = pair_tiles(bin_t), pair_tiles(bin_c)
+    key_t = tiles_t * n + bin_t.pair_gaussian.long()
+    key_c = tiles_c * n + bin_c.pair_gaussian.long()
+    only_t, only_c = ~torch.isin(key_t, key_c), ~torch.isin(key_c, key_t)
+    boundary, reach_t = reached_pixels(args_t, tiles_t[only_t], bin_t.pair_gaussian[only_t])
+    _, reach_c = reached_pixels(args_c, tiles_c[only_c], bin_c.pair_gaussian[only_c])
+    planes_t, nc_t = composite_fwd_cuda(*args_t, **lay_t)
+    planes_c, nc_c = composite_fwd_cuda(*args_c, **lay_c)
+    diff = (planes_c - planes_t).abs()
+    outside = ~boundary
+    err_rgbT = float(diff[:4][:, outside].max()) if outside.any() else 0.0
+    err_depth = float(diff[4][outside].max()) if outside.any() else 0.0
+    cot = photometric_cotangent(planes_t, teacher, torch.ones(3, device=teacher.device))
+    cot = cot * outside
+    g_t = composite_bwd_cuda(*args_t, planes_t[3], nc_t, cot, **lay_t)
+    g_c = composite_bwd_cuda(*args_c, planes_c[3], nc_c, cot, **lay_c)
+    scale = g_t.abs().amax(dim=0)
+    grad_rel = float(((g_c - g_t).abs().amax(dim=0) / torch.clamp_min(scale, 1e-30)).max())
+    res = {
+        "case": label, "pairs_tight": int(key_t.shape[0]), "pairs_cuda": int(key_c.shape[0]),
+        "pairs_only_tight": int(only_t.sum()), "pairs_only_cuda": int(only_c.sum()),
+        "longest_tile_tight": int((bin_t.tile_end - bin_t.tile_start).max()),
+        "longest_tile_cuda": int((bin_c.tile_end - bin_c.tile_start).max()),
+        "composites_only_cuda": reach_c, "composites_only_tight": reach_t,
+        "boundary_pixels": int(boundary.sum()),
+        "boundary_pixels_differing": int(((diff[:4].amax(dim=0) > MODE_TOL[0]) & boundary).sum()),
+        "max_abs_err_rgbT_elsewhere": err_rgbT, "max_abs_err_depth_elsewhere": err_depth,
+        "bwd_rel_err_per_col": grad_rel,
+        "fwd_ms_tight": cuda_ms(lambda: composite_fwd_cuda(*args_t, **lay_t), reps=20),
+        "fwd_ms_cuda": cuda_ms(lambda: composite_fwd_cuda(*args_c, **lay_c), reps=20),
+        "bwd_ms_tight": cuda_ms(
+            lambda: composite_bwd_cuda(*args_t, planes_t[3], nc_t, cot, **lay_t), reps=20),
+        "bwd_ms_cuda": cuda_ms(
+            lambda: composite_bwd_cuda(*args_c, planes_c[3], nc_c, cot, **lay_c), reps=20),
+    }
+    res["pair_ratio"] = res["pairs_cuda"] / max(res["pairs_tight"], 1)
+    log(f"  radius modes, {label}: {json.dumps(res)}")
+    if reach_c:
+        raise SystemExit(f"{label}: pairs that only radius_mode='cuda' bins composite")
+    if not (err_rgbT <= MODE_TOL[0] and err_depth <= MODE_TOL[1]):
+        raise SystemExit(f"{label}: radius_mode='cuda' renders another image than 'tight'")
+    if not grad_rel <= GRAD_TOL:
+        raise SystemExit(f"{label}: B2 differs between the radius modes")
+    return {**res, "args": args_c, "layout": lay_c}
+
+
+def radius_mode_cuda(ns, dev) -> dict:
+    """Phase 10: (a) B1 and B2 on the "cuda" pair sets of the gs_mesh
+    teacher's view 0 and the gs_flame first step against their plain
+    versions (the phase-2 bounds; gs_flame's B2 on the training loss's
+    cotangent alone: each plain call walks its longest tile) and against
+    "tight" mode (`radius_modes_agree`); (b) `rasterize_cuda(radius_mode=
+    "cuda")` on the tile rows BAND equal to the same rows of the whole
+    render, and with `pair_capacity` half the pairs the overflow the other
+    half; (c) the toy scene built on the card and TOY_SMOKE_ITERS steps of
+    the `--toy_dip` leg through apps.train (tools_torch_full_run.py): the
+    loss falls, the test PSNR rises from step 1, the launches as expected.
+    Returns the launches of (b) and (c) and the phase's numbers."""
+    import torch
+
+    import tools_torch_full_run as full_run
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
+
+    cam0, gt0 = ns.scene.train_cameras[0]
+    gt0 = torch.as_tensor(gt0, device=dev)
+    fcam, fgt = ns.flame_scene.train_cameras[0]
+    fgt = torch.as_tensor(fgt, device=dev)
+    out = {}
+    for key, label, bag, cam, gt, cots in (
+            ("gs_mesh", "gs_mesh teacher 800x800", ns.bag, cam0, gt0,
+             ("seeded", "photometric")),
+            ("flame", f"gs_flame first step 800x800 ({ns.flame_bag.num_gaussians} Gaussians)",
+             ns.flame_bag, fcam, fgt, ("photometric",))):
+        with torch.no_grad():
+            modes = radius_modes_agree(label, bag, cam, gt)
+            fwd = compare_composite(f"{label}, radius_mode cuda", modes["args"],
+                                    modes["layout"], time_it=False)
+        bwd = compare_composite_bwd(f"{label}, radius_mode cuda", modes["args"],
+                                    modes["layout"], gt, time_it=False, cotangents=cots)
+        out[key] = {k: v for k, v in modes.items() if k not in ("args", "layout")}
+        out[key].update(fwd_max_abs_err=fwd["max_abs_err_rgbT"],
+                        bwd_max_abs_err=bwd["photometric"]["max_abs_err"])
+
+    bag = ns.bag
+    kw = dict(bg=torch.ones(3, device=dev), shs=bag.shs, sh_degree=SH_DEGREE, alive=bag.alive,
+              radius_mode="cuda")
+    args = (bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam0)
+
+    def band_and_capacity():
+        whole = rasterize_cuda(*args, **kw)
+        band = rasterize_cuda(*args, row_band=BAND, **kw)
+        capped = rasterize_cuda(*args, pair_capacity=out["gs_mesh"]["pairs_cuda"] // 2, **kw)
+        return whole, band, capped
+
+    with torch.no_grad():
+        (whole, band, capped), _, fwd_b, bwd_b = counted(band_and_capacity)
+    rows = slice(BAND[0] * 16, min(BAND[1] * 16, cam0.height))
+    for k in ("image", "depth", "alpha"):
+        if not torch.equal(getattr(band, k), getattr(whole, k)[rows]):
+            raise SystemExit(f"radius_mode='cuda' with row_band={BAND}: {k} differs from the "
+                             "same rows of the whole render")
+    want_overflow = out["gs_mesh"]["pairs_cuda"] - out["gs_mesh"]["pairs_cuda"] // 2
+    log(f"[10b] radius_mode cuda: tile rows {BAND} bit-equal to the whole render's rows; "
+        f"pair_capacity {out['gs_mesh']['pairs_cuda'] // 2}: overflow {capped.overflow} "
+        f"(expected {want_overflow})")
+    if capped.overflow != want_overflow:
+        raise SystemExit("radius_mode='cuda' with pair_capacity: the overflow count is off")
+    expect_launches("phase 10 (b)", fwd_b, bwd_b, 3, 0)
+
+    toy, toy_s, fwd_t, bwd_t = counted(lambda: full_run.run_toy_dip(
+        os.path.join(WORK, "toy_dip"), TOY_SMOKE_ITERS, TOY_SMOKE_TEST_ITERS, "cuda",
+        quick=True))
+    log(f"[10c] toy scene (tools_torch_verify_scene.py) + {TOY_SMOKE_ITERS} steps of the "
+        f"--toy_dip leg in {toy_s:.1f} s: test PSNR {toy['test_psnr']}, step "
+        f"{toy['step_time']['median_ms']:.2f} ms (median), checks {toy['checks']}")
+    if not toy["ok"]:
+        raise SystemExit(f"the toy leg failed its checks: {toy['checks']}")
+    n_views = len(toy["test_psnr"]) * full_run.TOY_VIEWS + full_run.TOY_VIEWS  # evals + render
+    expect_launches("phase 10 (c)", fwd_t, bwd_t, TOY_SMOKE_ITERS + n_views, TOY_SMOKE_ITERS)
+    out.update(fwd={"radius_mode_cuda_render": fwd_b, "toy_dip": fwd_t},
+               bwd={"radius_mode_cuda_render": bwd_b, "toy_dip": bwd_t},
+               toy={k: toy[k] for k in ("test_psnr", "step_time", "final_metrics_cli")})
+    return out
 
 
 def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12, model=None) -> dict:
@@ -1137,15 +1345,37 @@ def read_png(path: str) -> np.ndarray:
     return img
 
 
-def timed_train(argv: list[str]):
+class _Tee:
+    """A text stream that keeps what is written to it and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def timed_train(argv: list[str], device: str = "cuda"):
     """apps.train.main(argv) with each train step timed on the host clock
-    between two synchronizations (the step the app builds, through the
-    train package's `make_train_step`). Returns (result, step ms list, wall
-    s, B1 launches, B2 launches)."""
+    between two synchronizations of `device` (the step the app builds,
+    through the train package's `make_train_step`) and its printed log kept;
+    both kernels' launch counts are set to 0 just before it. Returns
+    (result, log text, step ms list, wall s, B1 launches, B2 launches)."""
+    import contextlib
+
     import torch
 
     import gaussian_mesh_splatting_tpu_torch.train as train_pkg
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+
+    def sync():
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
 
     real_make, step_ms = train_pkg.make_train_step, []
 
@@ -1153,21 +1383,30 @@ def timed_train(argv: list[str]):
         step = real_make(*a, **kw)
 
         def timed(*args):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             out = step(*args)
-            torch.cuda.synchronize()
+            sync()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             return out
 
         return timed
 
+    tee = _Tee(sys.stdout)
+    rc.composite_fwd_cuda.launches = 0
+    rc.composite_bwd_cuda.launches = 0
     train_pkg.make_train_step = timed_make
     try:
-        res, wall, fwd, bwd = counted(lambda: train_app.main(argv))
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            res = train_app.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
     finally:
         train_pkg.make_train_step = real_make
-    return res, step_ms, wall, fwd, bwd
+    return (res, "".join(tee.parts), step_ms, wall, rc.composite_fwd_cuda.launches,
+            rc.composite_bwd_cuda.launches)
 
 
 def device_busy_share(trace_path: str) -> dict:
@@ -1347,7 +1586,7 @@ def eval_and_edit(ns, dev, last_test_psnr: float) -> dict:
     # (d) --detect_anomaly against a plain run of the same steps
     steps = {}
     for label, extra in (("plain", []), ("detect_anomaly", ["--detect_anomaly"])):
-        res, step_ms, _, f_d, b_d = timed_train(
+        res, _, step_ms, _, f_d, b_d = timed_train(
             [*mesh_argv, "-m", os.path.join(WORK, f"anomaly_{label}"),
              "--iterations", str(ANOMALY_ITERS), *extra])
         if (len(res.losses) != ANOMALY_ITERS or not np.isfinite(res.losses).all()
@@ -2593,7 +2832,13 @@ def main() -> int:
     log(f"    phase 9: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 10. output lines ---------------------------------------------------
+    # ---- 10. radius_mode="cuda" and the toy scene ----------------------------
+    t0 = time.perf_counter()
+    phase10 = radius_mode_cuda(ns, dev)
+    log(f"    phase 10: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 11. output lines ---------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -2611,6 +2856,7 @@ def main() -> int:
         **{f"launches_{k}": v for k, v in phase7["fwd"].items()},
         **{f"launches_{k}_per_rank": v for k, v in phase8["fwd"].items()},
         "launches_grad_conformance": phase9["fwd"],
+        **{f"launches_{k}": v for k, v in phase10["fwd"].items()},
         "max_abs_err": max(full["max_abs_err_rgbT"], gs_fwd["max_abs_err_rgbT"],
                            flame_fwd["max_abs_err_rgbT"]),
         "ms": full["ms"],
@@ -2623,6 +2869,10 @@ def main() -> int:
                                           "bound_by")},
         **{f"flame_{k}": flame_fwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms",
                                                 "bound_ms", "bound_by")},
+        **{f"{p}radius_mode_{k}": phase10[case][v] for p, case in (("", "gs_mesh"),
+                                                                   ("flame_", "flame"))
+           for k, v in (("cuda_pairs", "pairs_cuda"), ("tight_pairs", "pairs_tight"),
+                        ("cuda_ms", "fwd_ms_cuda"), ("tight_ms", "fwd_ms_tight"))},
     }, {
         "name": "composite_bwd",
         "route": "cuda",
@@ -2640,6 +2890,7 @@ def main() -> int:
         **{f"launches_{k}": v for k, v in phase7["bwd"].items()},
         **{f"launches_{k}_per_rank": v for k, v in phase8["bwd"].items()},
         "launches_grad_conformance": phase9["bwd"],
+        **{f"launches_{k}": v for k, v in phase10["bwd"].items()},
         "oracle_rel_err_at_scale": phase9["oracle"]["worst_rel_err"],
         "oracle_pairs_at_scale": phase9["oracle"]["n_pairs"],
         "fd_rel_err_full_scale": phase9["fd"]["worst_rel_err"],
@@ -2656,6 +2907,9 @@ def main() -> int:
                                           "bound_by")},
         **{f"flame_{k}": flame_bwd[k] for k in ("pairs", "ms", "queued_ms", "plain_ms",
                                                 "bound_ms", "bound_by")},
+        **{f"{p}radius_mode_{k}": phase10[case][v] for p, case in (("", "gs_mesh"),
+                                                                   ("flame_", "flame"))
+           for k, v in (("cuda_ms", "bwd_ms_cuda"), ("tight_ms", "bwd_ms_tight"))},
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -8,5 +8,6 @@ with `nvcc` at first use (see `ops/cuda_build.py`).
 """
 __version__ = "0.1.0"
 
+from . import core, io, models, ops, parallel, scene, train, utils
 from .device import resolve_device
 from .renderer import render

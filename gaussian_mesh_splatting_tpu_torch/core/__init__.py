@@ -26,3 +26,4 @@ from .face_frames import (
     soup_frames,
     soup_scaling_rotation_quat,
 )
+from .lr_schedule import expon_lr, make_expon_lr_schedule

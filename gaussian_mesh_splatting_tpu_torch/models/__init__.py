@@ -8,7 +8,7 @@ way.
 """
 from . import flat, mesh, multi_mesh, points, vanilla
 from .flame_gaussian import FlameGaussianModel
-from .gaussian_bag import GaussianBag, features_to_shs, shs_to_features
+from .gaussian_bag import GaussianBag, concat_bags, features_to_shs, shs_to_features
 
 # every gs_type of the package: the registry's and `gs_flame`
 GS_TYPES = ("gs", "gs_flat", "gs_mesh", "gs_multi_mesh", "gs_flame", "gs_points")

@@ -25,6 +25,12 @@ class GaussianBag:
         return self.xyz.shape[0]
 
 
+def concat_bags(bags: list[GaussianBag]) -> GaussianBag:
+    """One bag of every bag's rows, in order."""
+    return GaussianBag(**{f.name: torch.cat([getattr(b, f.name) for b in bags], dim=0)
+                          for f in dataclasses.fields(GaussianBag)})
+
+
 def features_to_shs(features_dc: torch.Tensor, features_rest: torch.Tensor) -> torch.Tensor:
     """features_dc (N, 1, 3) + features_rest (N, K-1, 3) -> (N, 3, K)."""
     return torch.cat([features_dc, features_rest], dim=1).transpose(1, 2)

@@ -22,6 +22,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.sh import C0, C1, C2, C3, C4
+from ..core.transforms import quat_to_rotmat
 
 NEAR_CULL_Z = 0.2  # the CUDA in_frustum near clip
 DILATION = 0.3  # px^2 added to the 2D covariance diagonal
@@ -41,9 +42,41 @@ class ProjectedGaussians(NamedTuple):
     radius_y: torch.Tensor  # (N,) binning rect y half-extent
 
 
+def compute_cov3d(scaling: torch.Tensor, rotation_q: torch.Tensor, modifier=1.0) -> torch.Tensor:
+    """(N, 3) activated scales + (N, 4) quaternions -> (N, 3, 3) covariance
+    R S S^T R^T."""
+    L = quat_to_rotmat(rotation_q) * (modifier * scaling)[..., None, :]
+    return L @ L.transpose(-1, -2)
+
+
 def ndc_to_pixel(ndc: torch.Tensor, size) -> torch.Tensor:
     """CUDA ndc2Pix: ((v + 1) * size - 1) * 0.5 (pixel centres at integers)."""
     return ((ndc + 1.0) * size - 1.0) * 0.5
+
+
+def project_points(means3d: torch.Tensor, cam: Camera
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project (N, 3) world points. Returns (mean2d pixels (N, 2), view z
+    (N,), view-space points (N, 3))."""
+    hom = torch.cat([means3d, means3d.new_ones((*means3d.shape[:-1], 1))], dim=-1)
+    p_view = hom @ cam.world_view.T  # (N, 4)
+    clip = hom @ cam.full_proj.T  # (N, 4)
+    ndc = clip[..., :3] / (clip[..., 3:4] + 1e-7)
+    px = ndc_to_pixel(ndc[..., 0], cam.width)
+    py = ndc_to_pixel(ndc[..., 1], cam.height)
+    return torch.stack([px, py], dim=-1), p_view[..., 2], p_view[..., :3]
+
+
+def ewa_cov2d(p_view: torch.Tensor, cov3d: torch.Tensor, cam: Camera
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """EWA 2D covariance, row-major: view-space positions (N, 3) and world
+    covariances (N, 3, 3) -> (cov2d (N, 3) = [a, b, c] with the dilation,
+    det_ratio (N,) = det(raw) / det(dilated), the antialiasing factor's
+    square)."""
+    c6 = (cov3d[..., 0, 0], cov3d[..., 0, 1], cov3d[..., 0, 2],
+          cov3d[..., 1, 1], cov3d[..., 1, 2], cov3d[..., 2, 2])
+    a, b, c, det_ratio = _ewa_cov2d_cols(p_view.unbind(-1), c6, cam)
+    return torch.stack([a, b, c], dim=-1), det_ratio
 
 
 def _ewa_cov2d_cols(pv, cov6, cam: Camera):

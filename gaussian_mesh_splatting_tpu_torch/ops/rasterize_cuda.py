@@ -17,8 +17,14 @@ the forward kernel and its backward the backward kernel. For CPU tensors the
 same Function runs the plain PyTorch versions `composite_fwd_plain` and
 `composite_bwd_plain`, so the CPU tests go through the same autograd wiring
 as the card. It never falls back from one to the other: a CUDA tensor gets
-the kernel or an exception. Tiles are 16x16 pixels; in "tight" radius mode
-the tile size does not change the image.
+the kernel or an exception. Tiles are 16x16 pixels. `radius_mode` picks
+the binning rectangles (`preprocess`): "tight" (the default, as in the JAX
+package) bins the per-axis extents of each Gaussian's alpha >= 1/255
+ellipse, "cuda" the reference rasterizer's 3-sigma square. The pairs only
+"cuda" bins composite nothing; where the square's tile rect stops a pixel
+short of a Gaussian of opacity above ~0.35, "tight" mode's +1 px bins a
+tile that composites there, so the images differ at such pixels (in the
+JAX package alike).
 """
 from __future__ import annotations
 
@@ -480,22 +486,25 @@ def rasterize_cuda(
     antialiasing: bool = False,
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
+    radius_mode: str = "tight",
     pair_capacity: int | None = None,
     row_band: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Fast equivalent of `rasterize_reference` (same contract) at 16x16
-    tiles, differentiable through the composite kernels. `pair_capacity`
-    bounds the pair list; pairs beyond it are dropped and counted in
-    `overflow`. `row_band=(lo, hi)` renders only the tile rows [lo, hi):
-    `image`, `depth` and `alpha` hold the pixel rows [lo * TILE,
-    min(hi * TILE, H)), each equal to the same rows of the whole render
-    (the kernels walk nothing outside the band)."""
+    tiles, differentiable through the composite kernels. `radius_mode`
+    ("tight" or "cuda", see `preprocess`) picks the binning rectangles; an
+    unknown mode raises ValueError. `pair_capacity` bounds the pair list;
+    pairs beyond it are dropped and counted in `overflow`. `row_band=(lo,
+    hi)` renders only the tile rows [lo, hi): `image`, `depth` and `alpha`
+    hold the pixel rows [lo * TILE, min(hi * TILE, H)), each equal to the
+    same rows of the whole render (the kernels walk nothing outside the
+    band)."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
         scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
         antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
-        radius_mode="tight",
+        radius_mode=radius_mode,
     )
     h, w = cam.height, cam.width
     n_ty, n_tx = _tile_grid(h, w)

@@ -38,9 +38,9 @@ def render(
 
     `mean2d_offset`: optional zeros (N, 2); pass it and differentiate w.r.t.
     it to obtain screen-space positional gradients for densification.
-    `backend_kwargs` forward to the selected rasterizer (`pair_capacity=`
-    for cuda/auto; `tile_size=`, `radius_mode=` and `scan_chunk=` for
-    reference)."""
+    `backend_kwargs` forward to the selected rasterizer: `radius_mode=`
+    for every backend; `pair_capacity=` and `row_band=` for cuda/auto;
+    `tile_size=` and `scan_chunk=` for reference."""
     common = dict(
         bg=bg, shs=bag.shs, sh_degree=sh_degree, scale_modifier=scale_modifier,
         antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=bag.alive,

@@ -39,9 +39,13 @@ def load_camera(
     resolution: int = -1,
     znear: float = 0.01,
     zfar: float = 100.0,
+    trans: np.ndarray | None = None,
+    scale: float = 1.0,
     *,
     device: str | torch.device | None = None,
 ) -> tuple[Camera, np.ndarray]:
+    """(Camera, GT image) of one reader camera at `resolution`; `trans` and
+    `scale` recentre and scale the world as `make_camera` does."""
     orig_h, orig_w = info.image.shape[:2]
     w, h = resolve_resolution(orig_w, orig_h, resolution)
     gt = _resize(info.image, (w, h))
@@ -50,7 +54,7 @@ def load_camera(
         gt = gt * mask
     cam = make_camera(
         info.R, info.T, info.fovx, info.fovy, w, h, znear=znear, zfar=zfar,
-        device=device,
+        trans=trans, scale=scale, device=device,
     )
     return cam, np.clip(gt, 0.0, 1.0)
 

@@ -35,8 +35,12 @@ def one_up_sh_degree(state: TrainState, max_degree: int) -> TrainState:
     return state
 
 
-def _masked_bag(model, state: TrainState):
-    bag = model.to_bag(state.model_state())
+def _masked_bag(model, state: TrainState, to_bag_kwargs: Callable | None = None):
+    # the keyword arguments are constants of the step, as in the JAX package
+    # (its loss differentiates the params, not the state they are made from)
+    with torch.no_grad():
+        extra = to_bag_kwargs(state) if to_bag_kwargs else {}
+    bag = model.to_bag(state.model_state(), **extra)
     return dataclasses.replace(bag, shs=sh_degree_mask(bag.shs, state.active_sh_degree))
 
 
@@ -49,11 +53,15 @@ def make_train_step(
     mark: Callable[[str], None] | None = None,
     render_fn: Callable | None = None,
     reduce=None,
+    to_bag_kwargs: Callable[[TrainState], dict] | None = None,
 ) -> Callable:
     """Build the step fn: (state, cam, gt, bg) -> (state, metrics).
 
     `model` is a registry module exposing to_bag; `gt` is (H, W, 3) on the
-    state's device. `render_kwargs` forward to the rasterizer (e.g.
+    state's device. `to_bag_kwargs`, if given, maps the state to keyword
+    arguments of `model.to_bag`, called in every step (e.g. `triangles=` of
+    a mesh animated while training); no gradient flows through them.
+    `render_kwargs` forward to the rasterizer (e.g.
     `pair_capacity=`, so the training loop can grow the pair list when
     `metrics["overflow"]` is nonzero). The metrics are 0-d tensors on the
     device, except `overflow`, a host int. `mark`, if given, is called with
@@ -86,7 +94,7 @@ def make_train_step(
         capacity = state.alive.shape[0]
         offset = torch.zeros((capacity, 2), dtype=torch.float32, device=state.alive.device,
                              requires_grad=True)
-        bag = _masked_bag(model, state)
+        bag = _masked_bag(model, state, to_bag_kwargs)
         mark("to_bag")
         out = render_fn(bag, cam, bg, offset)
         mark("render")

@@ -1,1 +1,2 @@
-from .profiling import MetricsLogger
+from .profiling import MetricsLogger, StepTimer, profiler_trace
+from .general import safe_state

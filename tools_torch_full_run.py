@@ -4,6 +4,8 @@ metrics of the at-scale scene, as `gs_mesh` or as `gs` with densification.
 
     python3 tools_torch_full_run.py [--gs_type gs_mesh|gs] [--iterations 30000]
                                     [--quick] [--out build/full_run/<gs_type>.json]
+    python3 tools_torch_full_run.py --toy_dip [--quick] [--iterations 5000]
+                                    [--device cuda|cpu] [--out build/full_run/toy_dip.json]
 
 Writes a Blender_Mesh dataset under build/full_run/: the repo's 5120-face
 lumpy icosphere (chip_smoke.py's `icosphere_mesh`), 100 train and 20 test
@@ -33,12 +35,28 @@ so the scores compare with the JAX package's (`VERIFY_r5.json`) only
 approximately. Exits 1 if a loss or score is not finite or, for `gs`, if
 the population falls below 1,000 after the first event or the last eval's
 PSNR is below the one at step 2,000.
+
+`--toy_dip` is the counterpart of `tools_verify_scale.py`'s
+`diagnose_toy_dip`: it builds the 128x128 toy scene of
+`tools_torch_verify_scene.py` (the JAX tool's dataset, GT and all) and runs
+`apps.train --gs_type gs_mesh --eval --iterations 5000 --num_splats 3
+--sh_degree 0 --white_background --backend cuda` with test evals every 500
+steps, then `apps.render --skip_train` and `apps.metrics`. It writes
+build/full_run/toy_dip.json: the test PSNR of every eval, the train PSNR the
+app logs every 500 steps, every step's time (host clock between two
+synchronizations), the B1/B2 launches against the expected counts, and the
+JAX record (`VERIFY_r5.json` `toy_dip_diagnosis`) beside them. It exits 1
+if an eval is not finite, the launches are off, or the mean test PSNR over
+the evals 1,500-5,000 is more than TOY_PSNR_TOL_DB from the record's;
+`--quick` (600 steps, evals at 300 and 600) checks only that the loss falls
+and the test PSNR rises. `--device cpu` runs it on the CPU (no launches).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -56,6 +74,12 @@ TEST_ITERS = (1000, 2000, 3000, 5000, 7000, 10000, 15000, 20000, 25000, 30000)
 QUICK_ITERS, QUICK_TEST_ITERS = 600, (300, 600)
 GS_POINTS = 100_000  # the Blender reader's seeded cloud without a points3d.ply
 MIN_POPULATION = 1_000  # gs: alive Gaussians after the first densify event, at least
+# --toy_dip: the JAX record's run (tools_verify_scale.py diagnose_toy_dip)
+TOY_ITERS, TOY_TEST_ITERS = 5000, tuple(range(500, 5001, 500))
+TOY_PLATEAU = (1500, 5000)  # the evals whose mean test PSNR is held against the record's
+TOY_PSNR_TOL_DB = 2.0
+TOY_SPLATS, TOY_SH_DEGREE, TOY_VIEWS = 3, 0, 8  # TOY_VIEWS: test views per eval
+JAX_RECORD = os.path.join(ROOT, "VERIFY_r5.json")
 
 
 def write_dataset(root: str) -> None:
@@ -144,14 +168,151 @@ def step_times(iter_time: list, densify_until: int | None = None) -> dict:
             "median_ms_after_densification": med([r for r in iter_time if r[0] > densify_until])}
 
 
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def toy_argv(data_dir: str, model_dir: str, iterations: int, test_iters, device: str
+             ) -> list[str]:
+    """apps.train's arguments for the toy leg (`diagnose_toy_dip`'s flags;
+    the backend is the CUDA path on the card and its plain twin on the CPU)."""
+    return ["--gs_type", "gs_mesh", "-s", data_dir, "-m", model_dir, "--eval",
+            "--iterations", str(iterations), "--num_splats", str(TOY_SPLATS),
+            "--sh_degree", str(TOY_SH_DEGREE), "--white_background",
+            "--backend", "cuda" if device.startswith("cuda") else "auto",
+            "--test_iterations", *map(str, test_iters), "--save_iterations", str(iterations),
+            "--device", device]
+
+
+def parse_train_log(text: str) -> dict:
+    """apps.train's log lines as [[iteration, value], ...]: the loss (its
+    running mean) and train PSNR it logs at step 1 and every 100 steps, and
+    the mean test PSNR of every eval."""
+    logged = re.findall(r"\[it (\d+)/\d+\] loss ([-\d.naif]+) psnr ([-\d.naif]+)", text)
+    evals = re.findall(r"\[it (\d+)\] eval: test PSNR ([-\d.naif]+)", text)
+    return {"loss": [[int(i), float(v)] for i, v, _ in logged],
+            "train_psnr": [[int(i), float(v)] for i, _, v in logged],
+            "test_psnr": [[int(i), float(v)] for i, v in evals]}
+
+
+def spread(ms: list[float]) -> dict:
+    """Median and spread of step times (ms)."""
+    q = np.percentile(ms, [10, 50, 90]) if ms else [None] * 3
+    return {"n": len(ms), "median_ms": q[1], "p10_ms": q[0], "p90_ms": q[2],
+            "min_ms": min(ms, default=None), "max_ms": max(ms, default=None)}
+
+
+def run_toy_dip(work: str, iterations: int, test_iters, device: str, quick: bool = False
+                ) -> dict:
+    """The toy leg end to end under `work` (see the module docstring).
+    Returns the result object, with "checks" and "ok"."""
+    import tools_torch_verify_scene as toy
+    from gaussian_mesh_splatting_tpu_torch.apps import metrics as metrics_app
+    from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
+
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir, model_dir = os.path.join(work, "scene"), os.path.join(work, "model")
+    t0 = time.perf_counter()
+    scene = toy.build_scene(data_dir, device=device)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, text, step_ms, _, fwd, bwd = cs.timed_train(
+        toy_argv(data_dir, model_dir, iterations, test_iters, device), device)
+    launches = [fwd, bwd]
+    train_s = time.perf_counter() - t0
+    render_app.main(["-m", model_dir, "--skip_train", "--device", device])
+    metrics_app.main(["-m", model_dir, "--device", device])
+    with open(os.path.join(model_dir, "results_gs_mesh.json")) as f:
+        final = json.load(f)[f"ours_{iterations}"]["gs_mesh"]
+    log = parse_train_log(text)
+    test = [[int(k), v] for k, v in sorted(res.test_psnr.items())]
+    with open(JAX_RECORD) as f:
+        record = json.load(f)["toy_dip_diagnosis"]
+    lo, hi = TOY_PLATEAU
+
+    def plateau_mean(curve):
+        vals = [v for i, v in curve if lo <= i <= hi]
+        return float(np.mean(vals)) if vals else None
+
+    on_card = device.startswith("cuda")
+    want = [iterations + TOY_VIEWS * len(test), iterations] if on_card else [0, 0]
+    checks = {"evals_finite": bool(test) and all(np.isfinite(v) for _, v in test),
+              "launches_as_expected": launches == want}
+    ours, theirs = plateau_mean(test), plateau_mean(record["test_psnr"])
+    if quick:
+        losses = res.losses
+        window = max(1, min(100, len(losses) // 4))
+        checks["loss_falls"] = float(np.mean(losses[-window:])) < float(np.mean(losses[:window]))
+        checks["test_psnr_rises"] = test[-1][1] > test[0][1]
+    elif ours is not None and iterations >= hi:
+        checks[f"plateau_within_{TOY_PSNR_TOL_DB}_db_of_the_record"] = (
+            abs(ours - theirs) <= TOY_PSNR_TOL_DB)
+    out = {
+        "card": card_line() if on_card else "cpu",
+        "scene": {"size": toy.SIZE, "faces": scene["faces"], "gaussians": scene["gaussians"],
+                  "train_views": toy.N_CAMS, "test_views": toy.N_CAMS,
+                  "sh_degree": TOY_SH_DEGREE, "iterations": iterations},
+        "test_psnr": test,
+        "train_psnr_every_500": [[i, v] for i, v in log["train_psnr"] if i % 500 == 0],
+        "train_psnr_log": log["train_psnr"],
+        "loss_log": log["loss"],
+        f"plateau_mean_test_psnr_{lo}_{hi}": ours,
+        "final_metrics_cli": final,
+        "step_time": spread(step_ms),
+        "launches": {"train": launches, "expected": want},
+        "dataset_s": data_s,
+        "train_s": train_s,
+        "jax_record": {**record, f"plateau_mean_test_psnr_{lo}_{hi}": theirs,
+                       "source": "VERIFY_r5.json toy_dip_diagnosis"},
+        "checks": checks,
+    }
+    out["ok"] = all(checks.values())
+    return out
+
+
+def toy_dip_main(args) -> int:
+    import torch
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        print("tools_torch_full_run --toy_dip: no CUDA device (pass --device cpu)",
+              file=sys.stderr)
+        return 2
+    if args.quick:
+        iterations, tests = QUICK_ITERS, QUICK_TEST_ITERS
+    else:
+        iterations = args.iterations if args.iterations is not None else TOY_ITERS
+        tests = tuple(t for t in TOY_TEST_ITERS if t < iterations) + (iterations,)
+    out = run_toy_dip(os.path.join(WORK, "toy_dip"), iterations, tests, args.device,
+                      quick=args.quick)
+    out_path = args.out or os.path.join(WORK, "toy_dip.json")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps({k: v for k, v in out.items() if k not in ("train_psnr_log", "loss_log")}))
+    return 0 if out["ok"] else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser("tools_torch_full_run")
     p.add_argument("--gs_type", default="gs_mesh", choices=["gs_mesh", "gs"])
-    p.add_argument("--iterations", type=int, default=30_000)
+    p.add_argument("--toy_dip", action="store_true",
+                   help="the 128x128 toy scene's 5,000-step gs_mesh run (diagnose_toy_dip)")
+    p.add_argument("--iterations", type=int, default=None,
+                   help=f"default 30000 ({TOY_ITERS} with --toy_dip)")
     p.add_argument("--quick", action="store_true",
                    help=f"{QUICK_ITERS} steps, evals at {QUICK_TEST_ITERS}")
-    p.add_argument("--out", default=None, help="default build/full_run/<gs_type>.json")
+    p.add_argument("--device", default="cuda", help="--toy_dip: cuda (default) or cpu")
+    p.add_argument("--out", default=None,
+                   help="default build/full_run/<gs_type>.json (toy_dip.json with --toy_dip)")
     args = p.parse_args(argv)
+    if args.toy_dip:
+        return toy_dip_main(args)
+    if args.iterations is None:
+        args.iterations = 30_000
     iterations = QUICK_ITERS if args.quick else args.iterations
     tests = QUICK_TEST_ITERS if args.quick else tuple(t for t in TEST_ITERS if t <= iterations)
     out_path = args.out or os.path.join(WORK, f"{args.gs_type}.json")
@@ -170,10 +331,7 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("tools_torch_full_run: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     work = os.path.join(WORK, args.gs_type)
