@@ -135,13 +135,34 @@ Phases (any failure exits nonzero; nothing is caught):
      steps of `tools_torch_full_run.py --toy_dip`'s leg through apps.train:
      the loss falls, the test PSNR rises from step 1; launches of (b) and (c)
      counted from 0 and checked;
- 11. print the kernels line (with each kernel's launches on the render path,
+ 11. the JAX rasterizer's bf16 pair-table modes (`attr_precision`,
+     `grad_precision`; `bf16_modes`): (a) at the gs_mesh teacher's view (B2:
+     the student's first step there) and the gs first step, B1 on the bf16
+     table bit-equal to its plain version on the rounded attributes and to
+     B1 on their float32 table, B2 in each mode pair within BF16_KERNEL_TOL *
+     max|g| per column of its plain version and BF16_MODE_TOL of the exact
+     B2, the per-Gaussian totals through the autograd Function bf16 values
+     under attr "bf16", a band of tile rows bit-equal to the whole bf16
+     render's rows; (b) the gs_flame first step, kernels only (B1 bit-equal
+     to B1 on the rounded float32 table, B2 on the bf16 table within
+     BF16_KERNEL_TOL of B2 on it, (f32, bf16) within BF16_MODE_TOL of the
+     exact B2; the attr "bf16" modes' distance from it measured, with its
+     sources, not bounded: the mode's rounding moves it past the bound
+     there); (c) both kernels' times on both tables in turns at the three
+     inputs, each bf16 bound from its walk's operations and 32-byte rows;
+     (d) `render(..., attr_precision="bf16")` of the teacher, and
+     BF16_ITERS gs_mesh steps through `make_train_step(render_kwargs=...)`
+     in the full-bf16 and the exact mode from one state (the losses fall,
+     the final test PSNRs within BF16_PSNR_GAP dB) and BF16_GRAD_ITERS in
+     (f32, bf16), every entry point's launches counted from 0 and checked;
+ 12. print the kernels line (with each kernel's launches on the render path,
      on each training path, `apps.render_flame`, each path of phase 7 (per
-     rank: phase 8) and phases 9 and 10,
+     rank: phase 8) and phases 9 to 11,
      its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
-     inputs, each bound from the operations that this run's data needs, and
-     each mode's pairs and times), the card's name and power limit, and
-     last the device line.
+     inputs, each bound from the operations that this run's data needs,
+     each radius mode's pairs and times, and the bf16 table's times, bounds
+     and errors), the card's name and power limit, and last the device
+     line.
 Data is generated from fixed seeds under build/chip_smoke/ (git-ignored).
 """
 from __future__ import annotations
@@ -248,6 +269,29 @@ REACH_CHUNK = 1 << 16  # pairs a pass of `reached_pixels`
 BAND = (20, 30)  # the tile rows of the "cuda"-mode band, of 50
 TOY_SMOKE_ITERS = 500
 TOY_SMOKE_TEST_ITERS = (1, 500)
+# phase 11: the JAX rasterizer's bf16 pair-table modes, (attr_precision,
+# grad_precision); the two with attr "bf16" are one computation (a bf16
+# table's pairs are rounded whatever grad_precision says)
+BF16_MODES = (("bf16", "bf16"), ("f32", "bf16"), ("bf16", "f32"))
+BF16_KERNEL_TOL = 8e-3  # B2 on the bf16 table vs its plain version, x max|g| a column
+# B2 on the float32 table, pairs rounded, vs its plain version, x max|g| a
+# column: below what the pairs' rounding itself moves (2.5e-3 to 3.0e-3 of
+# the exact B2 on the H100; the kernel measured 1.5e-4 to 3.3e-4 off)
+BF16_PAIR_KERNEL_TOL = 1e-3
+# Gaussians that a rounded mode's B2 puts more than GRAD_TOL x max|g| off its
+# plain version, at most: the atomics' order moves a few (0-2 on the H100);
+# a flush that skips the rounding moves thousands (2,269-9,677)
+BF16_KERNEL_OVER = 100
+BF16_MODE_TOL = 8e-2  # a bf16 mode's B2 against the exact B2, x max|g| (the JAX bound)
+# gs_flame's first step, the attr "bf16" modes' distance from the exact B2
+# (x max|g|) and its Gaussians past BF16_MODE_TOL, of 980,000: read 0.523 and
+# 1,066 on the H100 (PERF.md, the bf16 modes), held with margin
+FLAME_BF16_GAP = 0.8
+FLAME_BF16_OVER = 1600
+BF16_RENDER_PSNR = 40.0  # dB: the bf16 render of the teacher against the exact one, at least
+BF16_PSNR_GAP = 0.2  # dB: the bf16 A/B's final test PSNR against the exact run's
+BF16_ITERS = 100  # gs_mesh steps of each A/B run
+BF16_GRAD_ITERS = 30  # gs_mesh steps in the (f32, bf16) mode
 
 
 def log(msg: str) -> None:
@@ -489,6 +533,15 @@ def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bytes_and_bound(n_flops: float, n_bytes: int) -> dict:
+    """The least time the card could take (ms): the larger of the bytes over
+    the memory rate and the float32 operations over the peak rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_F32_FLOPS * 1e3
+    return {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def timed_once(fn):
     """(fn(), its time in ms between two CUDA events): one call, no warm-up."""
     import torch
@@ -676,16 +729,14 @@ def compare_composite(label: str, args, layout, time_it: bool, plain_reps=(10, 1
         n_tiles = int(tile_start.shape[0])
         ops, fwd_steps = composite_op_counts(args, nc_p)
         res["walk"] = walk_shape(args, nc_p, fwd_steps)
-        bytes_moved = 4 * n_pairs + 8 * n_tiles + 40 * mean2d.shape[0] + 24 * h * w
-        t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-        t_ops = ops["fwd_flops"] / H100_F32_FLOPS * 1e3
         res.update(
             ms=cuda_ms(lambda: composite_fwd_cuda(*args, **layout), reps=20),
             queued_ms=cuda_ms_queued(lambda: composite_fwd_cuda(*args, **layout), reps=20),
             plain_ms=plain_once_ms if plain_reps == (1, 0) else cuda_ms(
                 lambda: composite_fwd_plain(*args), reps=plain_reps[0], warmup=plain_reps[1]),
-            **{k: v for k, v in ops.items() if k.startswith("fwd_")}, bytes=bytes_moved,
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **{k: v for k, v in ops.items() if k.startswith("fwd_")},
+            **bytes_and_bound(ops["fwd_flops"], 4 * n_pairs + 8 * n_tiles
+                              + 40 * int(mean2d.shape[0]) + 24 * h * w),
         )
     else:
         res["walk"] = walk_shape(args, nc_p)
@@ -807,9 +858,6 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
         if ops is None:
             ops, _ = composite_op_counts(args, nc)
         res["walk"] = walk_shape(args, nc)
-        bytes_moved = 4 * n_pairs + 8 * n_tiles + 40 * n + 28 * h * w + 40 * n
-        t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-        t_ops = ops["bwd_flops"] / H100_F32_FLOPS * 1e3
         res.update(
             ms=cuda_ms(lambda: composite_bwd_cuda(*args, planes[3], nc, cot, **layout), reps=20),
             queued_ms=cuda_ms_queued(
@@ -817,13 +865,16 @@ def compare_composite_bwd(label: str, args, layout, teacher, time_it: bool,
             plain_ms=plain_once_ms if plain_reps == (1, 0) else cuda_ms(
                 lambda: composite_bwd_plain(*args, planes[3], nc, cot),
                 reps=plain_reps[0], warmup=plain_reps[1]),
-            **{k: v for k, v in ops.items() if k.startswith("bwd_")}, bytes=bytes_moved,
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **{k: v for k, v in ops.items() if k.startswith("bwd_")},
+            **bytes_and_bound(ops["bwd_flops"], 4 * n_pairs + 8 * n_tiles + 40 * n
+                              + 28 * h * w + 40 * n),
         )
     log(f"  B2 {label}: {json.dumps(res)}")
     if not res["ok"]:
         raise SystemExit(f"B2 disagrees with its plain version on {label}")
     res.update(planes=planes, nc=nc, cot=cots["photometric"])
+    if time_it:
+        res["op_counts"] = ops
     return res
 
 
@@ -1111,6 +1162,491 @@ def radius_mode_cuda(ns, dev) -> dict:
     return out
 
 
+def bf16_inputs(args, layout) -> dict:
+    """The composite's inputs in the bf16 table mode: the bf16 table's layout,
+    the attributes the kernels read from it (`round_attributes`) as plain-
+    version arguments, and those attributes' float32 layout."""
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        pack_attributes, pack_attributes_bf16, round_attributes)
+
+    rounded = (*round_attributes(*args[:5]), *args[5:])
+    return {"layout": {"tile_order": layout["tile_order"],
+                       "attrs": pack_attributes_bf16(*args[:5])},
+            "rounded": rounded,
+            "rounded_layout": {"tile_order": layout["tile_order"],
+                               "attrs": pack_attributes(*rounded[:5])}}
+
+
+def inclusion_flips(args, rounded, nc_exact, nc_rounded) -> dict:
+    """Per Gaussian, counts of the (pixel, pair)s whose part in B2 differs
+    between the exact attributes (`args`, with the exact forward's nc) and
+    the rounded ones (`rounded`, with their own forward's nc): included by
+    one and not the other (B2's rule: rank below nc, power <= 0, alpha >=
+    1/255), and included by both but clamped at ALPHA_MAX by one only (a
+    clamped alpha passes no gradient to the power or the opacity); also each
+    side's included (pixel, pair)s. In passes of REACH_CHUNK pairs."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import ALPHA_MAX, ALPHA_MIN
+
+    pair_gaussian, tile_start, tile_end, h, w = args[5:10]
+    dev, n = args[0].device, int(args[0].shape[0])
+    n_pairs, n_tiles = int(pair_gaussian.shape[0]), int(tile_start.shape[0])
+    px, py, inside = tile_pixels(h, w, n_tiles, dev)
+    pix = py.clamp_max(h - 1) * w + px.clamp_max(w - 1)
+    idx = torch.arange(n_pairs, device=dev)
+    tiles = torch.searchsorted(tile_end.long(), idx, right=True)
+    rank = idx - tile_start.long()[tiles.clamp_max(n_tiles - 1)]
+
+    def part(attrs, nc, t, g, k):
+        mean2d, conic, opacity = attrs[0], attrs[1], attrs[2]
+        dx = mean2d[g, 0:1] - px[t].to(torch.float32)
+        dy = mean2d[g, 1:2] - py[t].to(torch.float32)
+        a, b, c = conic[g, 0:1], conic[g, 1:2], conic[g, 2:3]
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        alpha_raw = opacity[g][:, None] * torch.exp(power)
+        inc = (inside[t] & (k[:, None] < nc.reshape(-1)[pix[t]].long()) & (power <= 0.0)
+               & (torch.clamp_max(alpha_raw, ALPHA_MAX) >= ALPHA_MIN))
+        return inc, inc & (alpha_raw < ALPHA_MAX)
+
+    out = {key: torch.zeros(n, dtype=torch.long, device=dev) for key in
+           ("included_exact", "included_rounded", "inclusion_flips", "clamp_flips")}
+    for lo in range(0, n_pairs, REACH_CHUNK):
+        t, g = tiles[lo:lo + REACH_CHUNK], pair_gaussian[lo:lo + REACH_CHUNK].long()
+        k = rank[lo:lo + REACH_CHUNK]
+        inc_x, free_x = part(args, nc_exact, t, g, k)
+        inc_r, free_r = part(rounded, nc_rounded, t, g, k)
+        for key, v in (("included_exact", inc_x), ("included_rounded", inc_r),
+                       ("inclusion_flips", inc_x != inc_r),
+                       ("clamp_flips", inc_x & inc_r & (free_x != free_r))):
+            out[key].index_add_(0, g, v.sum(dim=1))
+    return out
+
+
+def check_b1_bf16(label: str, args, layout, plain: bool) -> dict:
+    """B1 on the bf16 table: bit-equal (planes and nc) to B1 on the float32
+    table of the rounded attributes and, with `plain`, to the plain version
+    on them (that call timed once). Also its largest difference from the
+    exact mode (r, g, b, T)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_fwd_cuda, composite_fwd_plain)
+
+    b = bf16_inputs(args, layout)
+    planes, nc = composite_fwd_cuda(*args, **b["layout"])
+    planes_r, nc_r = composite_fwd_cuda(*b["rounded"], **b["rounded_layout"])
+    planes_x, _ = composite_fwd_cuda(*args, **layout)
+    res = {"case": label, "pairs": int(args[5].shape[0]),
+           "bit_equal_f32_on_rounded": torch.equal(planes, planes_r) and torch.equal(nc, nc_r),
+           "max_abs_diff_exact_rgbT": float((planes[:4] - planes_x[:4]).abs().max())}
+    if plain:
+        (planes_p, nc_p), plain_ms = timed_once(lambda: composite_fwd_plain(*b["rounded"]))
+        res.update(plain_ms=plain_ms,
+                   bit_equal_plain=torch.equal(planes, planes_p) and torch.equal(nc, nc_p),
+                   max_abs_err=float((planes - planes_p).abs().max()),
+                   nc_mismatches=int((nc != nc_p).sum()))
+    else:
+        res["max_abs_err"] = float((planes - planes_r).abs().max())
+    log(f"  B1 bf16 {label}: {json.dumps(res)}")
+    if not (res["bit_equal_f32_on_rounded"] and res.get("bit_equal_plain", True)):
+        raise SystemExit(f"B1 on the bf16 table is not bit-equal on {label}")
+    return res
+
+
+GRAD_COL_NAMES = ("mx", "my", "a", "b", "c", "op", "r", "g", "b_color", "z")
+
+
+def rounded_b2(attrs, rest, tile_order, cot):
+    """B1 then B2 on the float32 table of `attrs`, pairs rounded, the totals
+    rounded: the attr "bf16" mode's arithmetic on chosen attributes."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_bwd_cuda, composite_fwd_cuda, pack_attributes)
+
+    lay = {"tile_order": tile_order, "attrs": pack_attributes(*attrs)}
+    planes, nc = composite_fwd_cuda(*attrs, *rest, **lay)
+    g = composite_bwd_cuda(*attrs, *rest, planes[3], nc, cot, **lay, round_pairs=True)
+    return g.to(torch.bfloat16).float()
+
+
+def rel_per_gaussian(g, g_exact):
+    """Each Gaussian's largest |g - g_exact| over the columns, as a share of
+    the column's max|g_exact| (the measure of BF16_MODE_TOL)."""
+    import torch
+
+    return ((g - g_exact).abs() / torch.clamp_min(g_exact.abs().amax(dim=0), 1e-30)).amax(dim=1)
+
+
+def flame_gap(args, layout, b, nc_exact, nc_rounded, cot, g_exact, g) -> dict:
+    """The attr "bf16" mode's distance from the exact B2 on gs_flame, where
+    it passes BF16_MODE_TOL, split by what carries it (tools_torch_bf16_gap.py
+    breaks it down further): the Gaussians with (pixel, pair)s of their own
+    whose part in B2 flips between the exact and the rounded attributes
+    (`inclusion_flips`; a few-pixel Gaussian whose edge pixel flips moves by
+    a large share of max|g|), and the rest, which the colour's rounding moves
+    (B2 on the float32 table with the colour alone rounded, pairs and totals
+    rounded). Held: the largest distance is on a Gaussian with a flip of its
+    own; the rest are within the colour rounding's distance + BF16_MODE_TOL;
+    the distance and the Gaussians past BF16_MODE_TOL within FLAME_BF16_GAP
+    and FLAME_BF16_OVER."""
+    rel = rel_per_gaussian(g, g_exact)
+    flips = inclusion_flips(args, b["rounded"], nc_exact, nc_rounded)
+    own = (flips["inclusion_flips"] > 0) | (flips["clamp_flips"] > 0)
+    over = rel > BF16_MODE_TOL
+    colour = (*args[:3], b["rounded"][3], args[4])
+    colour_gap = float(rel_per_gaussian(rounded_b2(colour, args[5:], layout["tile_order"], cot),
+                                        g_exact).max())
+    r = {"gaussians_over_mode_tol": int(over.sum()),
+         "over_with_own_flip": int((over & own).sum()),
+         "worst_column": GRAD_COL_NAMES[int(((g - g_exact).abs().amax(dim=0) / g_exact.abs()
+                                             .amax(dim=0).clamp_min(1e-30)).argmax())],
+         "rel_err_with_own_flip": float(rel[own].max()) if bool(own.any()) else 0.0,
+         "rel_err_without_own_flip": float(rel[~own].max()) if bool((~own).any()) else 0.0,
+         "colour_rounded_alone": colour_gap,
+         "gaussians_with_own_flip": int(own.sum()),
+         **{k: int(v.sum()) for k, v in flips.items()}}
+    r["held"] = (r["rel_err_with_own_flip"] >= r["rel_err_without_own_flip"]
+                 and r["rel_err_without_own_flip"] <= colour_gap + BF16_MODE_TOL
+                 and float(rel.max()) <= FLAME_BF16_GAP
+                 and r["gaussians_over_mode_tol"] <= FLAME_BF16_OVER)
+    return r
+
+
+def check_b2_bf16(label: str, args, layout, teacher, plain: bool, flame: bool = False) -> dict:
+    """B2 in each of BF16_MODES on the photometric cotangent of the exact
+    forward against `teacher`, T and nc of the forward on that mode's
+    table: finite and not equal to the exact B2. In the rounded modes the
+    kernel's own output (before the totals' rounding) of every Gaussian with
+    exactly one pair is a bf16 value (the flush rounded that pair's sums);
+    the exact B2's, counted, is not for some (`bf16_modes` checks that an
+    input has such Gaussians). With `plain`, held against its plain
+    version, that call timed once, per column: on the bf16 table within
+    BF16_KERNEL_TOL x max|g|; on the float32 table with pairs rounded within
+    BF16_PAIR_KERNEL_TOL, below that rounding's own effect; in both at most
+    BF16_KERNEL_OVER Gaussians off it by more than GRAD_TOL x max|g|.
+    Without, the bf16 table against B2 on the float32 table of the rounded
+    attributes, pairs rounded, held so. Each mode within BF16_MODE_TOL of the
+    exact B2, but the attr "bf16" modes on gs_flame (`flame`), which
+    `flame_gap` holds. The per-Gaussian totals of an attr "bf16" mode
+    are rounded to bf16 here as `_Composite.backward` rounds them
+    (`function_totals` checks that path)."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_bwd_cuda, composite_bwd_plain, composite_fwd_cuda)
+
+    def is_bf16(x):
+        return x == x.to(torch.bfloat16).float()
+
+    b = bf16_inputs(args, layout)
+    exact_fwd = composite_fwd_cuda(*args, **layout)
+    bf16_fwd = composite_fwd_cuda(*args, **b["layout"])
+    # one cotangent for every mode (the exact forward's), so that the modes
+    # differ by their tables and roundings alone
+    cot = photometric_cotangent(exact_fwd[0], teacher, torch.ones(3, device=args[0].device))
+    g_exact = composite_bwd_cuda(*args, exact_fwd[0][3], exact_fwd[1], cot, **layout)
+    one_pair = torch.bincount(args[5].long(), minlength=args[0].shape[0]) == 1
+    res = {"case": label, "pairs": int(args[5].shape[0]),
+           "one_pair_gaussians": int(one_pair.sum()),
+           "one_pair_not_bf16_exact_mode": int((~is_bf16(g_exact[one_pair])).any(dim=1).sum())}
+    by_flags = {}
+    for attr, grad in BF16_MODES:
+        bf16 = attr == "bf16"
+        flags = (bf16, bf16 or grad == "bf16")
+        if flags not in by_flags:
+            planes, nc = bf16_fwd if bf16 else exact_fwd
+            g = composite_bwd_cuda(*args, planes[3], nc, cot, **(b["layout"] if bf16 else layout),
+                                   round_pairs=flags[1])
+            r = {"one_pair_bf16": bool(is_bf16(g[one_pair]).all())}
+            if bf16:
+                g = g.to(torch.bfloat16).float()
+            rel = rel_per_gaussian(g, g_exact)
+            r.update(finite=bool(torch.isfinite(g).all()), rel_err_vs_exact=float(rel.max()),
+                     equal_to_exact=torch.equal(g, g_exact))
+            if plain or bf16:
+                if plain:
+                    p, r["plain_ms"] = timed_once(lambda: composite_bwd_plain(
+                        *(b["rounded"] if bf16 else args), planes[3], nc, cot,
+                        round_pairs=flags[1]))
+                else:  # the float32 table of the rounded attributes, pairs rounded
+                    p = composite_bwd_cuda(*b["rounded"], planes[3], nc, cot,
+                                           **b["rounded_layout"], round_pairs=True)
+                if bf16:
+                    p = p.to(torch.bfloat16).float()
+                torch.cuda.synchronize()
+                scale = p.abs().amax(dim=0)
+                err = (g - p).abs()
+                r["tol"] = BF16_KERNEL_TOL if bf16 else BF16_PAIR_KERNEL_TOL
+                r.update(max_abs_err=float(err.max()),
+                         max_rel_err_per_col=float((err.amax(dim=0)
+                                                    / torch.clamp_min(scale, 1e-30)).max()),
+                         gaussians_over_grad_tol=int((err > GRAD_TOL * scale).any(dim=1).sum()),
+                         within_tol=bool((err.amax(dim=0) <= r["tol"] * scale).all()))
+                r["within_tol"] &= r["gaussians_over_grad_tol"] <= BF16_KERNEL_OVER
+            if flame and bf16:
+                r["gap"] = flame_gap(args, layout, b, exact_fwd[1], bf16_fwd[1], cot, g_exact, g)
+            held = r["gap"]["held"] if "gap" in r else r["rel_err_vs_exact"] <= BF16_MODE_TOL
+            r["ok"] = (held and r["finite"] and not r["equal_to_exact"]
+                       and r.get("within_tol", True) and r["one_pair_bf16"])
+            by_flags[flags] = r
+        res[f"{attr}_{grad}"] = by_flags[flags]
+    log(f"  B2 bf16 modes {label}: {json.dumps(res)}")
+    if not all(r["ok"] for r in by_flags.values()):
+        raise SystemExit(f"B2 in a bf16 mode failed its checks on {label}")
+    return res
+
+
+def function_totals(args, layout, teacher) -> dict:
+    """Through the autograd Function (`rasterize_cuda.composite`) on the card:
+    under attr_precision "bf16" every per-Gaussian gradient is a bf16 value;
+    under (f32, bf16) they are float32 sums and not all are."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.binning import Binning
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import composite
+
+    binning = Binning(*args[5:8], layout["tile_order"], None, 0)
+    res = {}
+    for attr, grad in BF16_MODES:
+        leaves = [a.detach().clone().requires_grad_(True) for a in args[:5]]
+        planes, _ = composite(*leaves, binning, *args[8:10], attr_precision=attr,
+                              grad_precision=grad)
+        planes.backward(photometric_cotangent(planes.detach(), teacher,
+                                              torch.ones(3, device=args[0].device)))
+        g = torch.cat([x.grad.reshape(x.shape[0], -1) for x in leaves], dim=1)
+        res[f"{attr}_{grad}"] = torch.equal(g, g.to(torch.bfloat16).float())
+    log(f"  per-Gaussian totals through the autograd Function, bf16-representable: "
+        f"{json.dumps(res)}")
+    if res != {"bf16_bf16": True, "f32_bf16": False, "bf16_f32": True}:
+        raise SystemExit("the bf16 modes' per-Gaussian totals are not rounded as they should be")
+    return res
+
+
+def bf16_times(args, layout, teacher, ops: dict) -> dict:
+    """The kernels' times on the float32 and the bf16 table in turns (f32,
+    bf16, bf16, f32; CUDA events: `ms`, median of 10 single launches, and
+    `queued_ms`, 10 queued), each mode's mean of its two turns, and each bf16
+    kernel's bound with its bytes (32-byte rows). `ops` holds phase 2's
+    operation counts of the same inputs ("fwd", "bwd", or both; a kernel is
+    timed where its counts are given): those of the exact attributes' walk.
+    The rounded attributes' walk differs from it only by the (pixel, pair)s
+    whose inclusion flips, a few per million of those included
+    (`inclusion_flips`, counted on gs_flame in (b)), so the bound is the
+    same to that share, and no replay of the walk is made for it."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_bwd_cuda, composite_fwd_cuda)
+
+    b = bf16_inputs(args, layout)
+    runs = {}
+    if "fwd" in ops:
+        runs["fwd"] = {"f32": lambda: composite_fwd_cuda(*args, **layout),
+                       "bf16": lambda: composite_fwd_cuda(*args, **b["layout"])}
+    if "bwd" in ops:
+        planes_b, nc_b = composite_fwd_cuda(*args, **b["layout"])
+        planes_f, nc_f = composite_fwd_cuda(*args, **layout)
+        cot = photometric_cotangent(planes_f, teacher, torch.ones(3, device=args[0].device))
+        runs["bwd"] = {
+            "f32": lambda: composite_bwd_cuda(*args, planes_f[3], nc_f, cot, **layout),
+            "bf16": lambda: composite_bwd_cuda(*args, planes_b[3], nc_b, cot, **b["layout"],
+                                               round_pairs=True)}
+    out = {}
+    for kernel, fns in runs.items():
+        t = {m: {"ms": [], "queued_ms": []} for m in fns}
+        for mode in ("f32", "bf16", "bf16", "f32"):
+            t[mode]["ms"].append(cuda_ms(fns[mode], reps=10))
+            t[mode]["queued_ms"].append(cuda_ms_queued(fns[mode], reps=10))
+        out[kernel] = {f"{m}_{k}": statistics.mean(v) for m, d in t.items() for k, v in d.items()}
+    n_pairs, n_tiles, n = int(args[5].shape[0]), int(args[6].shape[0]), int(args[0].shape[0])
+    h, w = args[8], args[9]
+    if "fwd" in ops:
+        out["fwd"].update(bytes_and_bound(ops["fwd"]["fwd_flops"],
+                                          4 * n_pairs + 8 * n_tiles + 32 * n + 24 * h * w))
+    if "bwd" in ops:
+        out["bwd"].update(bytes_and_bound(ops["bwd"]["bwd_flops"], 4 * n_pairs + 8 * n_tiles
+                                          + 32 * n + 28 * h * w + 40 * n))
+    return out
+
+
+def bf16_training(ns, dev) -> dict:
+    """`render(..., attr_precision="bf16")` of the gs_mesh teacher beside the
+    exact render; then BF16_ITERS steps of a fresh student through
+    `make_train_step(render_kwargs=...)` in the full-bf16 mode beside as many
+    in the exact mode, from the same state and camera order (view i % 3):
+    both losses fall (the mean of the last steps below the first's, 20 or a
+    third of the run at each end), and the bf16 run's final test PSNR (the
+    app's eval render, `make_eval_render`) is within BF16_PSNR_GAP dB of the
+    exact run's; BF16_GRAD_ITERS steps in the (f32, bf16) mode, whose loss
+    falls too. Each run's launches of every entry point are counted from 0
+    and checked."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.renderer import render
+    from gaussian_mesh_splatting_tpu_torch.train import (
+        make_train_state, make_train_step, optimization_config)
+    from gaussian_mesh_splatting_tpu_torch.train.loop import make_eval_render
+    from gaussian_mesh_splatting_tpu_torch.train.loss import psnr
+
+    white = torch.ones(3, device=dev)
+    cam0 = ns.scene.train_cameras[0][0]
+    reset_launch_counts()
+    with torch.no_grad():
+        r_b = render(ns.bag, cam0, white, sh_degree=SH_DEGREE, attr_precision="bf16")
+        r_x = render(ns.bag, cam0, white, sh_degree=SH_DEGREE)
+    torch.cuda.synchronize()
+    render_launches = entry_point_launches()
+    res = {"render": {"max_abs_diff": float((r_b.image - r_x.image).abs().max()),
+                      "psnr_vs_exact": float(psnr(r_b.image, r_x.image)),
+                      "finite": bool(torch.isfinite(r_b.image).all()),
+                      "launches": render_launches}}
+    log(f"[11d] render(attr_precision='bf16') of the teacher against the exact render: "
+        f"{json.dumps(res['render'])}")
+    if not (res["render"]["finite"] and res["render"]["psnr_vs_exact"] >= BF16_RENDER_PSNR):
+        raise SystemExit("the bf16 render of the teacher is off the exact one")
+    if render_launches != {"fwd": 1, "fwd_bf16": 1, "bwd": 0, "bwd_round_pairs": 0,
+                           "bwd_bf16": 0}:
+        raise SystemExit(f"the renders launched {render_launches}")
+
+    cfg = optimization_config("gs_mesh")
+    cams = [(c, torch.as_tensor(g, device=dev)) for c, g in ns.scene.train_cameras]
+    tests = [(c, torch.as_tensor(g, device=dev)) for c, g in ns.scene.test_cameras]
+    eval_render = make_eval_render(mesh_model, SH_DEGREE)
+
+    def run(attr: str, grad: str, iters: int) -> dict:
+        state = make_train_state(ns.scene.init_model_state(mesh_model, SH_DEGREE), cfg,
+                                 ns.scene.cameras_extent)
+        step = make_train_step(mesh_model, cfg, SH_DEGREE,
+                               render_kwargs=dict(attr_precision=attr, grad_precision=grad))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(iters):
+            cam, gt = cams[i % len(cams)]
+            state, metrics = step(state, cam, gt, white)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = entry_point_launches()
+        losses = torch.stack(losses).tolist()
+        window = min(20, iters // 3)  # steps at each end whose mean loss must fall
+        test_psnr = statistics.mean(float(psnr(eval_render(state, c, white), g))
+                                    for c, g in tests)
+        r = {"steps": iters, "wall_s": wall, "loss_window": window,
+             "loss_first": statistics.mean(losses[:window]),
+             "loss_last": statistics.mean(losses[-window:]), "test_psnr": test_psnr,
+             "launches": counts, "finite": bool(np.isfinite(losses).all())}
+        log(f"[11d] {iters} gs_mesh steps in ({attr}, {grad}): {json.dumps(r)}")
+        bf16 = attr == "bf16"
+        rounds = grad == "bf16" and not bf16
+        want = {"fwd": 0 if bf16 else iters, "fwd_bf16": iters if bf16 else 0,
+                "bwd": 0 if bf16 or rounds else iters, "bwd_round_pairs": iters if rounds else 0,
+                "bwd_bf16": iters if bf16 else 0}
+        if counts != want:
+            raise SystemExit(f"({attr}, {grad}) training launched {counts}, expected {want}")
+        if not (r["finite"] and r["loss_last"] < r["loss_first"]):
+            raise SystemExit(f"({attr}, {grad}) training: the loss did not fall")
+        return r
+
+    res["exact"] = run("f32", "f32", BF16_ITERS)
+    res["bf16"] = run("bf16", "bf16", BF16_ITERS)
+    res["f32_bf16"] = run("f32", "bf16", BF16_GRAD_ITERS)
+    res["psnr_gap_db"] = res["bf16"]["test_psnr"] - res["exact"]["test_psnr"]
+    log(f"[11d] final test PSNR: bf16 {res['bf16']['test_psnr']:.4f} dB, exact "
+        f"{res['exact']['test_psnr']:.4f} dB, gap {res['psnr_gap_db']:+.4f} dB "
+        f"(bound {BF16_PSNR_GAP})")
+    if abs(res["psnr_gap_db"]) > BF16_PSNR_GAP:
+        raise SystemExit("the bf16 run's test PSNR is off the exact run's")
+    return res
+
+
+def bf16_modes(ns, dev, cases, ops: dict | None = None) -> dict:
+    """Phase 11: the JAX rasterizer's bf16 pair-table modes on the CUDA path.
+    (a) at the gs_mesh teacher's view (B1; B2 at the student's first step
+    there, the training path's input) and the gs first step: B1 on the bf16
+    table bit-equal to its plain version and to B1 on the float32 table of the
+    rounded attributes; B2 in each mode within BF16_KERNEL_TOL (bf16 table)
+    or BF16_PAIR_KERNEL_TOL (float32 table, pairs rounded) of its plain
+    version and BF16_MODE_TOL of the exact B2, its one-pair Gaussians' sums
+    bf16 values; the totals through the autograd Function bf16 values under
+    attr "bf16"; a band of tile rows of a bf16 render bit-equal to the whole
+    bf16 render's rows; (b) the gs_flame first step, kernels only: B1
+    bit-equal to B1 on the rounded table, B2 on the bf16 table within
+    BF16_KERNEL_TOL of B2 on the rounded float32 table, one-pair sums bf16
+    values, (f32, bf16) within BF16_MODE_TOL of the exact B2, the attr
+    "bf16" modes' distance from it held by `flame_gap`; (c) both kernels'
+    times on both tables at the three inputs, with their bounds from phase
+    2's operation counts `ops` (run alone, without them, the walks are
+    replayed here); (d) `bf16_training`."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import (
+        composite_fwd_cuda, rasterize_cuda)
+
+    if ops is None:
+        def counts(case):
+            args, layout = cases[case]
+            with torch.no_grad():
+                return composite_op_counts(args, composite_fwd_cuda(*args, **layout)[1])[0]
+
+        ops = {"gs_mesh": {"fwd": counts("full"), "bwd": counts("train")},
+               "gs": dict.fromkeys(("fwd", "bwd"), counts("gs")),
+               "flame": dict.fromkeys(("fwd", "bwd"), counts("flame"))}
+
+    cam0, gt0 = ns.scene.train_cameras[0]
+    gt0 = torch.as_tensor(gt0, device=dev)
+    fgt = torch.as_tensor(ns.flame_scene.train_cameras[0][1], device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    log(f"[11a] B1 on the bf16 table (bit-equal), B2 in {BF16_MODES} (within "
+        f"{BF16_KERNEL_TOL}*max|g| (bf16 table) or {BF16_PAIR_KERNEL_TOL}*max|g| (float32 "
+        f"table) of the plain version, {BF16_MODE_TOL}*max|g| of exact B2; one-pair sums bf16)")
+    with torch.no_grad():
+        out["fwd"] = {"gs_mesh": check_b1_bf16("gs_mesh teacher 800x800", *cases["full"], True),
+                      "gs": check_b1_bf16("gs first step 800x800", *cases["gs"], True),
+                      "flame": check_b1_bf16("gs_flame first step 800x800", *cases["flame"],
+                                             False)}
+    out["bwd"] = {
+        "gs_mesh": check_b2_bf16("gs_mesh student vs GT 800x800", *cases["train"], gt0, True),
+        "gs": check_b2_bf16("gs first step vs GT 800x800", *cases["gs"], gt0, True),
+        "flame": check_b2_bf16("gs_flame first step vs GT 800x800", *cases["flame"], fgt,
+                               False, flame=True)}
+    if not any(r["one_pair_not_bf16_exact_mode"] for r in out["bwd"].values()):
+        raise SystemExit("no input has a one-pair Gaussian whose exact sums are not bf16 values")
+    out["totals"] = function_totals(*cases["train"], gt0)
+    bag = ns.bag
+    kw = dict(bg=torch.ones(3, device=dev), shs=bag.shs, sh_degree=SH_DEGREE, alive=bag.alive,
+              attr_precision="bf16", grad_precision="bf16")
+    args = (bag.xyz, bag.scaling, bag.rotation, bag.opacity, cam0)
+    with torch.no_grad():
+        whole = rasterize_cuda(*args, **kw)
+        band = rasterize_cuda(*args, row_band=BAND, **kw)
+    rows = slice(BAND[0] * 16, min(BAND[1] * 16, cam0.height))
+    for k in ("image", "depth", "alpha"):
+        if not torch.equal(getattr(band, k), getattr(whole, k)[rows]):
+            raise SystemExit(f"bf16 mode with row_band={BAND}: {k} differs from the whole "
+                             "render's rows")
+    log(f"[11a] bf16 mode: tile rows {BAND} bit-equal to the whole render's rows; "
+        f"(a, b) in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out["times"] = {
+            "gs_mesh": {**bf16_times(*cases["full"], gt0, {"fwd": ops["gs_mesh"]["fwd"]}),
+                        **bf16_times(*cases["train"], gt0, {"bwd": ops["gs_mesh"]["bwd"]})},
+            "gs": bf16_times(*cases["gs"], gt0, ops["gs"]),
+            "flame": bf16_times(*cases["flame"], fgt, ops["flame"])}
+    log(f"[11c] kernel times, float32 and bf16 table in turns (ms), bf16 bounds: "
+        f"{json.dumps(out['times'])} ({time.perf_counter() - t0:.1f} s)")
+
+    out["train"] = bf16_training(ns, dev)
+    return out
+
+
 def train_step_split(gs_type: str, state, cam, gt, bg, reps: int = 12, model=None) -> dict:
     """Device times (ms, median of `reps`) of a training path's own step
     (`train.loop.make_train_step`, as `apps.train` builds it) at `state`:
@@ -1312,21 +1848,43 @@ def kernel_cases(ns, dev) -> dict:
 
 
 def counted(fn):
-    """Run fn() with both kernels' launch counts set to 0 just before it;
-    returns (its result, wall seconds to a synchronized end, B1 launches,
-    B2 launches)."""
+    """Run fn() with every kernel entry point's launch count set to 0 just
+    before it; returns (its result, wall seconds to a synchronized end, B1
+    launches, B2 launches on the float32 table)."""
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
 
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return (out, time.perf_counter() - t0, rc.composite_fwd_cuda.launches,
             rc.composite_bwd_cuda.launches)
+
+
+LAUNCH_COUNTS = {"fwd": ("composite_fwd_cuda", "launches"),
+                 "fwd_bf16": ("composite_fwd_cuda", "launches_bf16"),
+                 "bwd": ("composite_bwd_cuda", "launches"),
+                 "bwd_round_pairs": ("composite_bwd_cuda", "launches_round_pairs"),
+                 "bwd_bf16": ("composite_bwd_cuda", "launches_bf16")}
+
+
+def reset_launch_counts() -> None:
+    """Every kernel entry point's launch count to 0."""
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+
+    for wrapper, count in LAUNCH_COUNTS.values():
+        setattr(getattr(rc, wrapper), count, 0)
+
+
+def entry_point_launches() -> dict:
+    """Each kernel entry point's launches since the last reset."""
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+
+    return {k: getattr(getattr(rc, wrapper), count)
+            for k, (wrapper, count) in LAUNCH_COUNTS.items()}
 
 
 def expect_launches(label: str, fwd: int, bwd: int, want_fwd: int, want_bwd: int) -> None:
@@ -2255,6 +2813,40 @@ def parallel_and_native(ns, dev, card: str) -> dict:
     return {"fwd": fwd, "bwd": bwd, **out}
 
 
+def bf16_line_keys(phase11: dict, kernel: str) -> dict:
+    """A kernel's bf16 keys of the kernels line (phase 11): per input (no
+    prefix: gs_mesh; "gs_", "flame_") the times on both tables in turns, the
+    bf16 kernel's bound, its largest error against its plain version and
+    that plain call's time (on gs_flame: the error against the kernel on the
+    float32 table of the rounded attributes, no plain call) and its
+    difference from the exact mode (B1: r, g, b, T; B2: max err / max|g|);
+    the bf16 entry points' launches on (d)'s paths."""
+    keys = {}
+    for prefix, case in (("", "gs_mesh"), ("gs_", "gs"), ("flame_", "flame")):
+        t = phase11["times"][case][kernel]
+        chk = phase11[kernel][case]
+        chk = chk if kernel == "fwd" else chk["bf16_bf16"]
+        keys.update({
+            f"{prefix}bf16_ms": t["bf16_ms"], f"{prefix}bf16_queued_ms": t["bf16_queued_ms"],
+            f"{prefix}f32_ms_beside_bf16": t["f32_ms"],
+            f"{prefix}f32_queued_ms_beside_bf16": t["f32_queued_ms"],
+            f"{prefix}bf16_bound_ms": t["bound_ms"], f"{prefix}bf16_bound_by": t["bound_by"],
+            f"{prefix}bf16_max_abs_err": chk["max_abs_err"],
+            f"{prefix}bf16_plain_ms": chk.get("plain_ms"),
+            f"{prefix}bf16_vs_f32_rel_err": chk["max_abs_diff_exact_rgbT" if kernel == "fwd"
+                                                else "rel_err_vs_exact"]})
+    train = phase11["train"]
+    if kernel == "fwd":
+        keys.update(bf16_launches_train=train["bf16"]["launches"]["fwd_bf16"],
+                    bf16_launches_render=train["render"]["launches"]["fwd_bf16"],
+                    launches_train_f32_attrs_bf16_grads=train["f32_bf16"]["launches"]["fwd"])
+    else:
+        keys.update(bf16_launches_train=train["bf16"]["launches"]["bwd_bf16"],
+                    round_pairs_launches_train_f32_attrs_bf16_grads=train["f32_bf16"][
+                        "launches"]["bwd_round_pairs"])
+    return keys
+
+
 def main() -> int:
     import concurrent.futures
 
@@ -2364,7 +2956,7 @@ def main() -> int:
                                      time_it=True)
     gs_bwd = compare_composite_bwd(
         f"gs first step 800x800 ({GS_POINTS} alive of {GS_CAPACITY}, vs GT)", *cases["gs"], gt0,
-        time_it=True, plain_reps=(1, 0))
+        time_it=True, plain_reps=(1, 0), ops=gs_fwd["op_counts"])
     flame_gt0 = torch.as_tensor(ns.flame_scene.train_cameras[0][1], device=dev)
     flame_bwd = compare_composite_bwd(
         f"gs_flame first step 800x800 ({ns.flame_bag.num_gaussians} Gaussians, vs GT)",
@@ -2838,7 +3430,16 @@ def main() -> int:
     log(f"    phase 10: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 11. output lines ---------------------------------------------------
+    # ---- 11. the bf16 pair-table modes ---------------------------------------
+    t0 = time.perf_counter()
+    phase11 = bf16_modes(ns, dev, cases, ops={
+        "gs_mesh": {"fwd": full["op_counts"], "bwd": full_bwd["op_counts"]},
+        "gs": {"fwd": gs_fwd["op_counts"], "bwd": gs_bwd["op_counts"]},
+        "flame": {"fwd": flame_fwd["op_counts"], "bwd": flame_bwd["op_counts"]}})
+    log(f"    phase 11: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 12. output lines ---------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -2873,6 +3474,7 @@ def main() -> int:
                                                                    ("flame_", "flame"))
            for k, v in (("cuda_pairs", "pairs_cuda"), ("tight_pairs", "pairs_tight"),
                         ("cuda_ms", "fwd_ms_cuda"), ("tight_ms", "fwd_ms_tight"))},
+        **bf16_line_keys(phase11, "fwd"),
     }, {
         "name": "composite_bwd",
         "route": "cuda",
@@ -2910,6 +3512,7 @@ def main() -> int:
         **{f"{p}radius_mode_{k}": phase10[case][v] for p, case in (("", "gs_mesh"),
                                                                    ("flame_", "flame"))
            for k, v in (("cuda_ms", "bwd_ms_cuda"), ("tight_ms", "bwd_ms_tight"))},
+        **bf16_line_keys(phase11, "bwd"),
     }]}
     print(json.dumps(kernels))
     print(card)

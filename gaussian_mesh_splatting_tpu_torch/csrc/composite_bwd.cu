@@ -24,19 +24,27 @@
 //   dmx = -(a dx + b dy) dpower   dmy = -(c dy + b dx) dpower
 //   da = -0.5 dx^2 dpower   db = -dx dy dpower   dc = -0.5 dy^2 dpower
 //   dcolor = w dL/dC,  dz = w dL/dD.
-// Input: one packed row of 12 floats per Gaussian (mx, my, a, b, c, op, r, g,
-// b, z, 0, 0). Output: grads (N, 12) float32, columns mx, my, a, b, c, op, r,
-// g, b, z and two that stay zero (a 16-byte-aligned row for vector atomics);
-// the caller zeroes it before the launch.
+// Input: one packed row per Gaussian, 12 floats (mx, my, a, b, c, op, r, g,
+// b, z, 0, 0) or 16 bf16 in the split layout of the JAX rasterizer's
+// attr_precision="bf16" (composite_common.cuh; staged as the float32 row of
+// the reconstructed values). Output: grads (N, 12) float32, columns mx, my,
+// a, b, c, op, r, g, b, z and two that stay zero (a 16-byte-aligned row for
+// vector atomics); the caller zeroes it before the launch.
+// Entry points: composite_bwd (float32 rows), composite_bwd_round_pairs
+// (float32 rows; each pair's ten sums rounded to bf16 before they are added
+// to the Gaussian's row: the JAX rasterizer's grad_precision="bf16") and
+// composite_bwd_bf16 (bf16 rows, pairs rounded: attr_precision="bf16", whose
+// per-pair gradient table the JAX kernel writes in bf16). The rounding is
+// __float2bfloat16_rn, round to nearest even as torch's and XLA's casts.
 //
 // What bounds it: per evaluated (pixel, pair) ~60 float operations with one
-// expf and a 10-term sum over the tile, against 48 bytes of attributes per
-// pair read once per tile and 32 bytes of per-pixel state read once; like the
-// forward it is bound by arithmetic, not by device memory. What kept it far
-// from that bound: a tile's walk is serial and cannot be spread over SMs, and
-// every pair of every tile cost, in sequence, fifty warp shuffles, a block
-// barrier and up to ten global atomics, whether or not a warp's own pixels
-// reached the pair.
+// expf and a 10-term sum over the tile, against 48 bytes (bf16 rows: 32) of
+// attributes per pair read once per tile and 32 bytes of per-pixel state read
+// once; like the forward it is bound by arithmetic, not by device memory.
+// What kept it far from that bound: a tile's walk is serial and cannot be
+// spread over SMs, and every pair of every tile cost, in sequence, fifty warp
+// shuffles, a block barrier and up to ten global atomics, whether or not a
+// warp's own pixels reached the pair.
 // Design: one block of 256 threads per tile, one pixel per thread, a warp on
 // an 8x4 pixel patch (the forward's layout, composite_common.cuh).
 //  - Tile order: block i takes tile `tile_order[i]`, the tiles by falling
@@ -70,7 +78,8 @@
 //  - Flush once per batch: after the walk one barrier, then thread t adds pair
 //    t's row into its Gaussian's row of the output with three 16-byte vector
 //    atomics (atomicAdd on float4, compute capability 9.x), and only if some
-//    pixel included the pair.
+//    pixel included the pair. Where pairs are rounded, the row is rounded to
+//    bf16 here, before the atomics (bf16(0) is 0, so the test still holds).
 // No tensor core (wgmma) is used: the kernel has no matrix product, and its
 // inclusion tests allow no operand rounded to fewer bits than float32.
 //
@@ -79,7 +88,10 @@
 // kernel's did. The sums over pixels are taken in the butterfly's order, then
 // by shared-memory and device-memory atomics in an order that changes from
 // run to run, so the result matches the plain version to a tolerance, not bit
-// for bit.
+// for bit. Where pairs are rounded to bf16, a pair's float32 sum that the
+// order moves across a rounding boundary moves by one bf16 step (2^-8 of the
+// pair's value), so there the tolerance is two such steps of the largest
+// gradient (8e-3 x max|g| per column).
 #include "composite_common.cuh"
 
 namespace {
@@ -147,12 +159,21 @@ __device__ __forceinline__ void warp_sum_values(const float (&v)[N], float (&out
   halve_and_add<halved(N, 4), 1>(u4, out, lane, first, n_real);
 }
 
+// A pair's sums rounded to bf16 (nearest even) and back.
+__device__ __forceinline__ float4 round_to_bf16(const float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+template <bool kBf16Rows, bool kRoundPairs>
 __global__ void __launch_bounds__(kThreads)
 composite_bwd_kernel(const int* __restrict__ pair_gaussian,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_end,
                      const int* __restrict__ tile_order,
-                     const float4* __restrict__ attrs,   // (N, 12) floats
+                     const void* __restrict__ attrs,     // (N, 12) floats or (N, 16) bf16
                      const float* __restrict__ t_final,  // (H, W)
                      const int* __restrict__ nc_in,      // (H, W)
                      const float* __restrict__ grad_planes,  // (5, H, W): r, g, b, T, D
@@ -214,7 +235,7 @@ composite_bwd_kernel(const int* __restrict__ pair_gaussian,
   // `buf`, then fetch the id of the batch in front of it
   auto stage = [&](int batch, int buf) {
     if (g_next >= 0) {
-      stage_row(&sh.attr[buf][kRow4 * tid], attrs, g_next);
+      stage_row<kBf16Rows>(&sh.attr[buf][kRow4 * tid], attrs, g_next);
       sh.id[buf][tid] = g_next;
     }
     g_next = pair_id(batch - 1);
@@ -324,7 +345,12 @@ composite_bwd_kernel(const int* __restrict__ pair_gaussian,
     // flush: thread t adds pair t's sums into its Gaussian's row
     if (tid < n) {
       float4* const mine = sh.acc + kRow4 * tid;
-      const float4 r0 = mine[0], r1 = mine[1], r2 = mine[2];
+      float4 r0 = mine[0], r1 = mine[1], r2 = mine[2];
+      if constexpr (kRoundPairs) {
+        r0 = round_to_bf16(r0);
+        r1 = round_to_bf16(r1);
+        r2 = round_to_bf16(r2);
+      }
       // nonzero only if some pixel included the pair
       if (r0.x != 0.0f || r0.y != 0.0f || r0.z != 0.0f || r0.w != 0.0f || r1.x != 0.0f ||
           r1.y != 0.0f || r1.z != 0.0f || r1.w != 0.0f || r2.x != 0.0f || r2.y != 0.0f) {
@@ -338,20 +364,32 @@ composite_bwd_kernel(const int* __restrict__ pair_gaussian,
   }
 }
 
-}  // namespace
-
-extern "C" int composite_bwd(const int* pair_gaussian, const int* tile_start,
-                             const int* tile_end, const int* tile_order,
-                             const float* attrs, const float* t_final,
-                             const int* nc, const float* grad_planes, int height,
-                             int width, int n_tiles_x, int n_tiles, float* grads,
-                             void* stream) {
+template <bool kBf16Rows, bool kRoundPairs>
+int launch(const int* pair_gaussian, const int* tile_start, const int* tile_end,
+           const int* tile_order, const void* attrs, const float* t_final, const int* nc,
+           const float* grad_planes, int height, int width, int n_tiles_x, int n_tiles,
+           float* grads, void* stream) {
   if (n_tiles > 0) {
-    composite_bwd_kernel<<<n_tiles, kThreads, sizeof(Shared),
-                           static_cast<cudaStream_t>(stream)>>>(
-        pair_gaussian, tile_start, tile_end, tile_order,
-        reinterpret_cast<const float4*>(attrs), t_final, nc, grad_planes, height,
-        width, n_tiles_x, reinterpret_cast<float4*>(grads));
+    composite_bwd_kernel<kBf16Rows, kRoundPairs><<<n_tiles, kThreads, sizeof(Shared),
+                                                   static_cast<cudaStream_t>(stream)>>>(
+        pair_gaussian, tile_start, tile_end, tile_order, attrs, t_final, nc, grad_planes,
+        height, width, n_tiles_x, reinterpret_cast<float4*>(grads));
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define GMS_COMPOSITE_BWD_ENTRY(name, bf16_rows, round_pairs)                                \
+  extern "C" int name(const int* pair_gaussian, const int* tile_start, const int* tile_end, \
+                      const int* tile_order, const void* attrs, const float* t_final,       \
+                      const int* nc, const float* grad_planes, int height, int width,       \
+                      int n_tiles_x, int n_tiles, float* grads, void* stream) {             \
+    return launch<bf16_rows, round_pairs>(pair_gaussian, tile_start, tile_end, tile_order,  \
+                                          attrs, t_final, nc, grad_planes, height, width,   \
+                                          n_tiles_x, n_tiles, grads, stream);               \
+  }
+
+GMS_COMPOSITE_BWD_ENTRY(composite_bwd, false, false)              // (N, 12) float32 rows
+GMS_COMPOSITE_BWD_ENTRY(composite_bwd_round_pairs, false, true)   // float32 rows, bf16 pairs
+GMS_COMPOSITE_BWD_ENTRY(composite_bwd_bf16, true, true)           // (N, 16) bf16 rows

@@ -1,6 +1,18 @@
 // What csrc/composite_fwd.cu and csrc/composite_bwd.cu share: the block's
-// shape, the staging copy of a pair's row, and the cull that gives each warp
-// the list of the pairs it has to walk.
+// shape, the staging copy of a pair's row (from either row format), and the
+// cull that gives each warp the list of the pairs it has to walk.
+//
+// Row formats of the attribute table (one row per Gaussian):
+//  - float32: 12 floats (mx, my, a, b, c, op, r, g, b, z, 0, 0), 48 bytes;
+//  - bfloat16 (the JAX rasterizer's attr_precision="bf16" split layout): 16
+//    bf16 (mx_hi, mx_lo, my_hi, my_lo, a_hi, a_lo, b_hi, b_lo, c_hi, c_lo,
+//    op_hi, op_lo, r, g, b, z), 32 bytes, where hi = bf16(x) and lo =
+//    bf16(x - hi), both rounded to nearest even. The staging copy turns it
+//    into the float32 row above: hi + lo for the first six (exact in float32)
+//    and the plain bf16 value for colour and depth. Everything after the
+//    copy (the warp cull and the walks) reads only that float32 row, so a
+//    kernel on the bf16 table computes exactly what it computes on the
+//    float32 table of the reconstructed values.
 //
 // Block shape: one block of 256 threads per 16x16 pixel tile, one pixel per
 // thread, a warp on a kWarpW x kWarpH pixel patch (8x4: a compact patch is
@@ -19,6 +31,7 @@
 // alpha >= 1/255, both as rounded by the walk) would include for some pixel of
 // the patch, so the kernels' results do not change by a bit.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gms {
@@ -27,7 +40,8 @@ constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRow = 12;  // floats per packed row (attributes in, gradients out)
-constexpr int kRow4 = kRow / 4;  // 16-byte words per row
+constexpr int kRow4 = kRow / 4;  // 16-byte words per row (float32 rows; shared memory)
+constexpr int kRowBf16Words = 2;  // 16-byte words per bfloat16 row in the table
 constexpr int kWarpW = 8;  // a warp's pixel patch is kWarpW x kWarpH
 constexpr int kWarpH = 32 / kWarpW;
 constexpr int kWarpsX = kTile / kWarpW;
@@ -35,17 +49,36 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 
-// Copies Gaussian `g`'s packed row (three 16-byte words) from the attribute
-// table into a staging buffer's row in shared memory. The three loads are in
-// flight together; the double buffer lets them overlap the other warps' walk
-// of the batch before. (cp.async in their place measured no faster on the
-// H100: the gather's latency is already hidden behind the walk.)
-__device__ __forceinline__ void stage_row(float4* dst_shared, const float4* attrs, int g) {
-  const float4* src = attrs + kRow4 * g;
-  const float4 q0 = src[0], q1 = src[1], q2 = src[2];
-  dst_shared[0] = q0;
-  dst_shared[1] = q1;
-  dst_shared[2] = q2;
+// A bf16 in one half of a 32-bit word as a float32: its bits are the top
+// 16 bits of that float32 (the half at the lower address is the low half).
+__device__ __forceinline__ float bf16_low(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_high(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+// A (hi, lo) pair of the split layout: hi + lo, exact in float32.
+__device__ __forceinline__ float bf16_pair(unsigned w) { return bf16_low(w) + bf16_high(w); }
+
+// Copies Gaussian `g`'s row of the attribute table (`attrs`: float32 rows, or
+// bfloat16 rows with kBf16Rows) into a staging buffer's float32 row in shared
+// memory. The loads of a row (three or two 16-byte words) are in flight
+// together; the double buffer lets them overlap the other warps' walk of the
+// batch before. (cp.async in their place measured no faster on the H100: the
+// gather's latency is already hidden behind the walk.)
+template <bool kBf16Rows>
+__device__ __forceinline__ void stage_row(float4* dst_shared, const void* attrs, int g) {
+  if constexpr (kBf16Rows) {
+    const uint4* src = static_cast<const uint4*>(attrs) + kRowBf16Words * g;
+    const uint4 w0 = src[0], w1 = src[1];
+    dst_shared[0] = make_float4(bf16_pair(w0.x), bf16_pair(w0.y), bf16_pair(w0.z),
+                                bf16_pair(w0.w));                     // mx, my, a, b
+    dst_shared[1] = make_float4(bf16_pair(w1.x), bf16_pair(w1.y), bf16_low(w1.z),
+                                bf16_high(w1.z));                     // c, op, r, g
+    dst_shared[2] = make_float4(bf16_low(w1.w), bf16_high(w1.w), 0.0f, 0.0f);  // b, z
+  } else {
+    const float4* src = static_cast<const float4*>(attrs) + kRow4 * g;
+    const float4 q0 = src[0], q1 = src[1], q2 = src[2];
+    dst_shared[0] = q0;
+    dst_shared[1] = q1;
+    dst_shared[2] = q2;
+  }
 }
 
 // Which of the tile's eight warp patches the Gaussian q0 = (mx, my, a, b),

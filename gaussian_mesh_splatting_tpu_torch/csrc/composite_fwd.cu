@@ -10,13 +10,19 @@
 //   composited; otherwise C += T alpha c, D += T alpha z, T *= 1 - alpha.
 // Outputs per pixel: r, g, b (no background), final T, expected depth and
 // nc, the 1-based rank (within the tile's range) of the last included pair.
-// Input: one packed row of 12 floats per Gaussian (mx, my, a, b, c, op, r, g,
-// b, z, 0, 0), so that a pair's attributes are three 16-byte words.
+// Input: one packed row per Gaussian, in one of two formats
+// (composite_common.cuh): 12 floats (mx, my, a, b, c, op, r, g, b, z, 0, 0),
+// three 16-byte words (entry point composite_fwd), or 16 bf16 in the JAX
+// rasterizer's attr_precision="bf16" split layout, two 16-byte words
+// (composite_fwd_bf16). The staging copy turns a bf16 row into the float32
+// row of its reconstructed values, so on the bf16 table the kernel's result
+// is bit-equal to its result on the float32 table of those values.
 //
 // What bounds it: per evaluated (pixel, pair) it does ~20 float operations
-// including one expf, against 48 bytes of Gaussian attributes per pair that
-// are read once per tile; with 256 pixels sharing every pair it is bound by
-// arithmetic (the f32 pipe and the SFU's exp), not by device memory. What
+// including one expf, against 48 bytes (bf16 rows: 32) of Gaussian
+// attributes per pair that are read once per tile; with 256 pixels sharing
+// every pair it is bound by arithmetic (the f32 pipe and the SFU's exp), not
+// by device memory. What
 // kept it far from that bound was not the arithmetic but its order: a tile's
 // walk is serial in T and cannot be spread over SMs, so the kernel lasts as
 // long as its longest tile, whose every step waited for the previous one
@@ -64,12 +70,13 @@ constexpr int kBatch = kThreads;  // pairs staged per batch, one per thread
 constexpr int kIlp = 4;            // pairs evaluated together
 constexpr float kTEps = 1e-4f;
 
+template <bool kBf16Rows>
 __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const int* __restrict__ pair_gaussian,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_end,
                      const int* __restrict__ tile_order,
-                     const float4* __restrict__ attrs,   // (N, 12) floats
+                     const void* __restrict__ attrs,     // (N, 12) floats or (N, 16) bf16
                      int height, int width, int n_tiles_x,
                      float* __restrict__ out,            // (5, H, W): r, g, b, T, D
                      int* __restrict__ out_nc) {         // (H, W)
@@ -102,7 +109,7 @@ composite_fwd_kernel(const int* __restrict__ pair_gaussian,
   // copy this thread's row of `batch` (whose id is in g_next) into the batch's
   // buffer, then fetch the id of the batch after it
   auto stage = [&](int batch) {
-    if (g_next >= 0) stage_row(&s_attr[batch & 1][kRow4 * tid], attrs, g_next);
+    if (g_next >= 0) stage_row<kBf16Rows>(&s_attr[batch & 1][kRow4 * tid], attrs, g_next);
     g_next = pair_id(batch + 1);
   };
 
@@ -187,19 +194,37 @@ composite_fwd_kernel(const int* __restrict__ pair_gaussian,
   }
 }
 
-}  // namespace
-
-extern "C" int composite_fwd(const int* pair_gaussian, const int* tile_start,
-                             const int* tile_end, const int* tile_order,
-                             const float* attrs, int height, int width,
-                             int n_tiles_x, int n_tiles, float* out, int* out_nc,
-                             void* stream) {
+template <bool kBf16Rows>
+int launch(const int* pair_gaussian, const int* tile_start, const int* tile_end,
+           const int* tile_order, const void* attrs, int height, int width, int n_tiles_x,
+           int n_tiles, float* out, int* out_nc, void* stream) {
   if (n_tiles > 0) {
-    composite_fwd_kernel<<<n_tiles, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        pair_gaussian, tile_start, tile_end, tile_order,
-        reinterpret_cast<const float4*>(attrs), height, width, n_tiles_x, out,
-        out_nc);
+    composite_fwd_kernel<kBf16Rows><<<n_tiles, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        pair_gaussian, tile_start, tile_end, tile_order, attrs, height, width, n_tiles_x,
+        out, out_nc);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// attrs: (N, 12) float32 rows
+extern "C" int composite_fwd(const int* pair_gaussian, const int* tile_start,
+                             const int* tile_end, const int* tile_order,
+                             const void* attrs, int height, int width,
+                             int n_tiles_x, int n_tiles, float* out, int* out_nc,
+                             void* stream) {
+  return launch<false>(pair_gaussian, tile_start, tile_end, tile_order, attrs, height, width,
+                       n_tiles_x, n_tiles, out, out_nc, stream);
+}
+
+// attrs: (N, 16) bfloat16 rows (the split layout)
+extern "C" int composite_fwd_bf16(const int* pair_gaussian, const int* tile_start,
+                                  const int* tile_end, const int* tile_order,
+                                  const void* attrs, int height, int width,
+                                  int n_tiles_x, int n_tiles, float* out, int* out_nc,
+                                  void* stream) {
+  return launch<true>(pair_gaussian, tile_start, tile_end, tile_order, attrs, height, width,
+                      n_tiles_x, n_tiles, out, out_nc, stream);
 }

@@ -4,7 +4,8 @@
   preprocess (torch)           project / cull / conic / SH, ops/projection.py
   bin_gaussians (torch)        depth-ordered per-tile pair lists, ops/binning.py
   pack_attributes (torch)      the ten per-Gaussian attributes as one (N, 12)
-                               table: a row is three 16-byte words
+                               float32 table: a row is three 16-byte words
+                               (pack_attributes_bf16: (N, 16) bfloat16, two)
   composite (CUDA kernels)     forward: per-tile front-to-back composite,
                                csrc/composite_fwd.cu; backward: per-tile
                                back-to-front re-walk into per-Gaussian
@@ -25,6 +26,18 @@ ellipse, "cuda" the reference rasterizer's 3-sigma square. The pairs only
 short of a Gaussian of opacity above ~0.35, "tight" mode's +1 px bins a
 tile that composites there, so the images differ at such pixels (in the
 JAX package alike).
+
+Precision (the JAX rasterizer's two options, default "f32" here):
+`attr_precision="bf16"` stores the table in the JAX package's split bf16
+layout (`pack_attributes_bf16`: exact hi/lo pairs for mean2d, conic and
+opacity, plain bf16 colour and depth); the kernels reconstruct the float32
+values that `round_attributes` returns, so the forward equals the exact
+forward on those values. `grad_precision="bf16"` rounds each (Gaussian,
+tile) pair's gradient to bf16 before the per-Gaussian sum; under
+`attr_precision="bf16"` that rounding always happens (the JAX kernel writes
+its per-pair table in bf16) and the per-Gaussian sums are rounded to bf16
+too. The JAX package defaults to both ("bf16", a TPU speed choice); the port
+keeps the exact mode, which its strict checks hold.
 """
 from __future__ import annotations
 
@@ -44,6 +57,8 @@ TILE = 16  # the kernels' tile edge (one block of TILE*TILE threads per tile)
 N_PLANES = 5  # r, g, b, T_final, depth
 GRAD_COLS = 10  # per-Gaussian gradient columns: mx, my, a, b, c, op, r, g, b, z
 ROW = 12  # floats per packed row (attributes in, gradients out): GRAD_COLS + 2 of padding
+BF16_ROW = 16  # bf16 per row of the split table (JAX ATTR_COLS): six hi/lo pairs + r, g, b, z
+PRECISIONS = ("f32", "bf16")
 
 
 def _tile_grid(height: int, width: int) -> tuple[int, int]:
@@ -67,6 +82,42 @@ def pack_attributes(mean2d: torch.Tensor, conic: torch.Tensor, opacity: torch.Te
     n = mean2d.shape[0]
     pad = torch.zeros((n, ROW - GRAD_COLS), dtype=mean2d.dtype, device=mean2d.device)
     return torch.cat([mean2d, conic, opacity[:, None], color, depth[:, None], pad], dim=1)
+
+
+def pack_attributes_bf16(mean2d: torch.Tensor, conic: torch.Tensor, opacity: torch.Tensor,
+                         color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """The kernels' input table under attr_precision="bf16": (N, BF16_ROW)
+    bfloat16 in the JAX rasterizer's split layout (its
+    `rasterize_pallas` attr_split rows), columns mx_hi, mx_lo, my_hi, my_lo,
+    a_hi, a_lo, b_hi, b_lo, c_hi, c_lo, op_hi, op_lo, r, g, b, z with hi =
+    bf16(x) and lo = bf16(x - f32(hi)), both rounded to nearest even: a row
+    is 32 bytes (two 16-byte words) at a 16-byte-aligned offset."""
+    n = mean2d.shape[0]
+    base = torch.cat([mean2d, conic, opacity[:, None]], dim=1)  # (N, 6) float32
+    hi = base.to(torch.bfloat16)
+    lo = (base - hi.float()).to(torch.bfloat16)
+    split = torch.stack([hi, lo], dim=2).reshape(n, 12)
+    plain = torch.cat([color, depth[:, None]], dim=1).to(torch.bfloat16)
+    return torch.cat([split, plain], dim=1)
+
+
+def round_attributes(mean2d: torch.Tensor, conic: torch.Tensor, opacity: torch.Tensor,
+                     color: torch.Tensor, depth: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The float32 (mean2d, conic, opacity, color, depth) that the kernels
+    read from `pack_attributes_bf16`'s table: f32(hi) + f32(lo) for mean2d,
+    conic and opacity (exact in float32), f32(bf16(x)) for colour and
+    depth; each contiguous."""
+    table = pack_attributes_bf16(mean2d, conic, opacity, color, depth).float()
+    pairs = table[:, :12].reshape(-1, 6, 2)
+    values = torch.cat([pairs[..., 0] + pairs[..., 1], table[:, 12:]], dim=1)
+    return tuple(c.contiguous() for c in split_columns(values))
+
+
+def _check_precision(attr_precision: str, grad_precision: str) -> None:
+    """Raise ValueError unless both options are "f32" or "bf16"."""
+    for name, value in (("attr_precision", attr_precision), ("grad_precision", grad_precision)):
+        if value not in PRECISIONS:
+            raise ValueError(f"{name} must be one of {PRECISIONS}, got {value!r}")
 
 
 def split_columns(table: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -161,12 +212,15 @@ def composite_bwd_plain(
     t_final: torch.Tensor,
     nc: torch.Tensor,
     grad_planes: torch.Tensor,
+    round_pairs: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the backward composite kernel, with the same
     inputs and output: the forward's inputs, its saved T_final (H, W) and nc
     (H, W), and the cotangents of its five planes (5, H, W). Vectorized over
     tiles and pixels, a Python loop over the k-th pair of every tile from
     the back; each per-pixel term is the kernel's expression, in its order.
+    With `round_pairs` each (Gaussian, tile) pair's ten sums are rounded to
+    bf16 (nearest even) before they are added to the Gaussian's row.
 
     Returns per-Gaussian gradients (N, 10) float32, columns mx, my, a, b, c,
     op, r, g, b, z."""
@@ -225,6 +279,8 @@ def composite_bwd_plain(
             torch.where(unclamped, dalpha * G, 0.0),
             w * gr, w * gg, w * gb, w * gd,
         ], dim=-1).sum(dim=1)  # (n_tiles, 10): summed over the tile's pixels
+        if round_pairs:
+            terms = terms.to(torch.bfloat16).float()
         grads.index_add_(0, g[active], terms[active])
     return grads
 
@@ -236,22 +292,30 @@ FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 
 # bwd: pair_gaussian, tile_start, tile_end, tile_order, attrs, t_final, nc,
 #      grad_planes; height, width, n_tiles_x, n_tiles; grads, stream
 BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+# the entry points, all of one interface each: (bf16 rows,) -> fwd entry,
+# (bf16 rows, pairs rounded) -> bwd entry
+FWD_ENTRIES = {False: "composite_fwd", True: "composite_fwd_bf16"}
+BWD_ENTRIES = {(False, False): "composite_bwd", (False, True): "composite_bwd_round_pairs",
+               (True, True): "composite_bwd_bf16"}
+
+
+def _bind(name: str, entries, argtypes) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
 
 
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("composite_fwd")
-    lib.composite_fwd.restype = ctypes.c_int
-    lib.composite_fwd.argtypes = FWD_ARGTYPES
-    return lib
+    return _bind("composite_fwd", FWD_ENTRIES.values(), FWD_ARGTYPES)
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("composite_bwd")
-    lib.composite_bwd.restype = ctypes.c_int
-    lib.composite_bwd.argtypes = BWD_ARGTYPES
-    return lib
+    return _bind("composite_bwd", BWD_ENTRIES.values(), BWD_ARGTYPES)
 
 
 def _check_kernel_inputs(expect: dict, dev: torch.device) -> None:
@@ -283,16 +347,20 @@ def _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
     }
 
 
-def _check_kernel_layout(tile_order, attrs, n, n_tiles, dev) -> None:
+def _check_kernel_layout(tile_order, attrs, n, n_tiles, dev) -> bool:
     """The kernels' own two inputs, which the render path makes once and shares
     between the forward and the backward: the tile order and the packed
-    attribute table."""
+    attribute table, float32 (N, ROW) or bfloat16 (N, BF16_ROW). Returns
+    whether the table is the bfloat16 one."""
+    bf16 = attrs.dtype == torch.bfloat16
     _check_kernel_inputs({
         "tile_order": (tile_order, torch.int32, (n_tiles,)),
-        "attrs": (attrs, torch.float32, (n, ROW)),
+        "attrs": (attrs, *((torch.bfloat16, (n, BF16_ROW)) if bf16 else
+                           (torch.float32, (n, ROW)))),
     }, dev)
     if attrs.data_ptr() % 16:
         raise ValueError("attrs must be 16-byte aligned (the kernels copy rows in 16-byte words)")
+    return bf16
 
 
 def composite_fwd_cuda(
@@ -313,34 +381,40 @@ def composite_fwd_cuda(
     """Launch the forward composite kernel (csrc/composite_fwd.cu) on
     PyTorch's current stream. Same contract as `composite_fwd_plain`, with
     the kernel's own two inputs beside: `tile_order` (`Binning.tile_order`)
-    and `attrs` (`pack_attributes` of the five attribute tensors). Counts its
-    launches in `composite_fwd_cuda.launches`."""
+    and `attrs`, `pack_attributes` of the five attribute tensors or
+    `pack_attributes_bf16` (then the result is the plain version's on
+    `round_attributes` of them). Counts its launches in
+    `composite_fwd_cuda.launches` (float32 table) and `.launches_bf16`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
     gaussians = (mean2d, conic, opacity, color, depth)
     _check_kernel_inputs(_gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end,
                                           n_tiles), dev)
-    _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
+    bf16 = _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
 
     planes = torch.empty((N_PLANES, height, width), dtype=torch.float32, device=dev)
     nc = torch.empty((height, width), dtype=torch.int32, device=dev)
-    lib = _fwd_lib()
+    entry = FWD_ENTRIES[bf16]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.composite_fwd(
+        err = getattr(_fwd_lib(), entry)(
             pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
             tile_order.data_ptr(), attrs.data_ptr(),
             height, width, n_tx, n_tiles,
             planes.data_ptr(), nc.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
-    composite_fwd_cuda.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    if bf16:
+        composite_fwd_cuda.launches_bf16 += 1
+    else:
+        composite_fwd_cuda.launches += 1
     return planes, nc
 
 
 composite_fwd_cuda.launches = 0
+composite_fwd_cuda.launches_bf16 = 0
 
 
 def _cotangent_planes(grad_planes: torch.Tensor | None, height: int, width: int,
@@ -373,13 +447,17 @@ def composite_bwd_cuda(
     *,
     tile_order: torch.Tensor,
     attrs: torch.Tensor,
+    round_pairs: bool = False,
 ) -> torch.Tensor:
     """Launch the backward composite kernel (csrc/composite_bwd.cu) on
     PyTorch's current stream. Same contract as `composite_bwd_plain`, but the
     (N, 10) result is a view of the kernel's (N, 12) output (row stride 12);
     `grad_planes` may also be None (zeros) or strided; `tile_order` and
-    `attrs` as for `composite_fwd_cuda`. Counts its launches in
-    `composite_bwd_cuda.launches`."""
+    `attrs` as for `composite_fwd_cuda`. A bfloat16 table needs
+    `round_pairs` (its pairs are rounded, as the JAX kernel's bf16 per-pair
+    table is). Counts its launches in `composite_bwd_cuda.launches` (float32
+    table), `.launches_round_pairs` (float32 table, pairs rounded) and
+    `.launches_bf16`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
@@ -390,46 +468,65 @@ def composite_bwd_cuda(
     _check_kernel_inputs(expect, dev)
     cot = _cotangent_planes(grad_planes, height, width, dev)
     _check_kernel_inputs({"grad_planes": (cot, torch.float32, (N_PLANES, height, width))}, dev)
-    _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
+    bf16 = _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
+    if bf16 and not round_pairs:
+        raise ValueError("a bfloat16 attribute table rounds its pairs' gradients: "
+                         "pass round_pairs=True")
 
     buf, grads = gradient_buffer(mean2d.shape[0], dev)
-    lib = _bwd_lib()
+    entry = BWD_ENTRIES[bf16, bool(round_pairs)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.composite_bwd(
+        err = getattr(_bwd_lib(), entry)(
             pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
             tile_order.data_ptr(), attrs.data_ptr(), t_final.data_ptr(), nc.data_ptr(),
             cot.data_ptr(), height, width, n_tx, n_tiles, buf.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
-    composite_bwd_cuda.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    if bf16:
+        composite_bwd_cuda.launches_bf16 += 1
+    elif round_pairs:
+        composite_bwd_cuda.launches_round_pairs += 1
+    else:
+        composite_bwd_cuda.launches += 1
     return grads
 
 
 composite_bwd_cuda.launches = 0
+composite_bwd_cuda.launches_round_pairs = 0
+composite_bwd_cuda.launches_bf16 = 0
 
 
 class _Composite(torch.autograd.Function):
     """The composite behind autograd: forward composite, then backward
     composite, as kernels for CUDA tensors and as plain versions for CPU
-    tensors."""
+    tensors, in the precision modes of `rasterize_cuda`."""
 
     @staticmethod
-    def forward(ctx, mean2d, conic, opacity, color, depth,
-                pair_gaussian, tile_start, tile_end, tile_order, height, width):
+    def forward(ctx, mean2d, conic, opacity, color, depth, pair_gaussian, tile_start,
+                tile_end, tile_order, height, width, attr_precision, grad_precision):
         gaussians = (mean2d, conic, opacity, color, depth)
         lists = (pair_gaussian, tile_start, tile_end)
+        bf16_attrs = attr_precision == "bf16"
         if mean2d.is_cuda:
             # packed once, read by the forward kernel and again by the backward
-            attrs = pack_attributes(*gaussians)
+            pack = pack_attributes_bf16 if bf16_attrs else pack_attributes
+            attrs = pack(*gaussians)
             planes, nc = composite_fwd_cuda(*gaussians, *lists, height, width,
                                             tile_order=tile_order, attrs=attrs)
             ctx.save_for_backward(*gaussians, *lists, planes, nc, tile_order, attrs)
         else:
+            if bf16_attrs:  # the values the kernels read from the bf16 table
+                gaussians = round_attributes(*gaussians)
             planes, nc = composite_fwd_plain(*gaussians, *lists, height, width)
             ctx.save_for_backward(*gaussians, *lists, planes, nc)
         ctx.image_size = (height, width)
+        # the JAX package: a bf16 table's per-pair gradients are a bf16 table
+        # and its per-Gaussian sums are cast to bf16; grad_precision="bf16"
+        # rounds the per-pair gradients alone
+        ctx.round_pairs = bf16_attrs or grad_precision == "bf16"
+        ctx.round_totals = bf16_attrs
         ctx.mark_non_differentiable(nc)
         return planes, nc
 
@@ -441,11 +538,15 @@ class _Composite(torch.autograd.Function):
         if inputs[0].is_cuda:
             tile_order, attrs = ctx.saved_tensors[10:]
             grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes,
-                                       tile_order=tile_order, attrs=attrs)
+                                       tile_order=tile_order, attrs=attrs,
+                                       round_pairs=ctx.round_pairs)
         else:
             cot = _cotangent_planes(grad_planes, height, width, inputs[0].device)
-            grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot)
-        return (*split_columns(grads), None, None, None, None, None, None)
+            grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot,
+                                        round_pairs=ctx.round_pairs)
+        if ctx.round_totals:
+            grads = grads.to(torch.bfloat16).float()
+        return (*split_columns(grads), *[None] * 8)
 
 
 def composite(
@@ -457,16 +558,19 @@ def composite(
     binning: Binning,
     height: int,
     width: int,
+    attr_precision: str = "f32",
+    grad_precision: str = "f32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable composite on the tensors' device: the CUDA kernels for
-    CUDA tensors, the plain versions for CPU tensors. Returns
-    (planes (5,H,W), nc (H,W))."""
+    CUDA tensors, the plain versions for CPU tensors, in the precision modes
+    of `rasterize_cuda`. Returns (planes (5,H,W), nc (H,W))."""
     if mean2d.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no composite for device {mean2d.device}")
+    _check_precision(attr_precision, grad_precision)
     return _Composite.apply(
         mean2d.contiguous(), conic.contiguous(), opacity.contiguous(), color.contiguous(),
         depth.contiguous(), binning.pair_gaussian, binning.tile_start,
-        binning.tile_end, binning.tile_order, height, width,
+        binning.tile_end, binning.tile_order, height, width, attr_precision, grad_precision,
     )
 
 
@@ -487,18 +591,22 @@ def rasterize_cuda(
     mean2d_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     radius_mode: str = "tight",
+    grad_precision: str = "f32",
+    attr_precision: str = "f32",
     pair_capacity: int | None = None,
     row_band: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Fast equivalent of `rasterize_reference` (same contract) at 16x16
     tiles, differentiable through the composite kernels. `radius_mode`
     ("tight" or "cuda", see `preprocess`) picks the binning rectangles; an
-    unknown mode raises ValueError. `pair_capacity` bounds the pair list;
-    pairs beyond it are dropped and counted in `overflow`. `row_band=(lo,
-    hi)` renders only the tile rows [lo, hi): `image`, `depth` and `alpha`
-    hold the pixel rows [lo * TILE, min(hi * TILE, H)), each equal to the
-    same rows of the whole render (the kernels walk nothing outside the
-    band)."""
+    unknown mode raises ValueError. `attr_precision` and `grad_precision`
+    ("f32", the exact default, or "bf16": the JAX rasterizer's pair-table
+    modes, see the module docstring) raise ValueError for any other value.
+    `pair_capacity` bounds the pair list; pairs beyond it are dropped and
+    counted in `overflow`. `row_band=(lo, hi)` renders only the tile rows
+    [lo, hi): `image`, `depth` and `alpha` hold the pixel rows [lo * TILE,
+    min(hi * TILE, H)), each equal to the same rows of the whole render (the
+    kernels walk nothing outside the band)."""
     proj = preprocess(
         means3d, scales, rotations, opacities, cam,
         shs=shs, colors=colors, sh_degree=sh_degree,
@@ -514,7 +622,7 @@ def rasterize_cuda(
     )
     planes, _nc = composite(
         proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth,
-        binning, h, w,
+        binning, h, w, attr_precision, grad_precision,
     )
     if row_band is not None:
         planes = planes[:, row_band[0] * TILE:row_band[1] * TILE]

@@ -41,7 +41,6 @@ TOOL_RENAMES = {  # JAX root script -> its counterpart, a path in the repo
 PALLAS_LAYOUT = ("the Pallas kernel's chunk-padded pair layout; the port bins exactly, held "
                  "equal in tests/test_torch_binning.py")
 ROW_BAND = "row_band=(lo, hi): the port bins global tiles clipped to a band of tile rows"
-BF16_MODES = "the bf16 pair-table modes: queued, ROADMAP section B"
 OPTAX = "optax transformation: the port's optimizer is a torch.optim.Adam in the TrainState"
 JAX_KEY = "a jax.random key: the port draws from a torch.Generator"
 PALLAS_INTERPRET = "Pallas interpret mode: the port's CPU path is each kernel's plain version"
@@ -66,8 +65,6 @@ ALLOWED = {
     ("param", "ops/rasterize_pallas.py", "rasterize_pallas", "row_tile_offset"): ROW_BAND,
     ("param", "ops/rasterize_pallas.py", "rasterize_pallas", "chunk"): PALLAS_LAYOUT,
     ("param", "ops/rasterize_pallas.py", "rasterize_pallas", "interpret"): PALLAS_INTERPRET,
-    ("param", "ops/rasterize_pallas.py", "rasterize_pallas", "attr_precision"): BF16_MODES,
-    ("param", "ops/rasterize_pallas.py", "rasterize_pallas", "grad_precision"): BF16_MODES,
     ("param", "parallel/row_sharded.py", "render_row_sharded", "interpret"): PALLAS_INTERPRET,
     ("param", "parallel/gaussian_sharded.py", "render_gaussian_sharded",
      "interpret"): PALLAS_INTERPRET,

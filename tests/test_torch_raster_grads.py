@@ -27,11 +27,15 @@ from test_torch_rasterize import CASES, _scene
 torch.set_num_threads(2)
 BG = np.array([0.1, 0.2, 0.3], np.float32)
 PARAMS = ("means3d", "scales", "rotations", "opacities", "shs")
+# the grads' cases: the render tests' and the JAX Pallas tests' size (64
+# Gaussians at 128x32, tests/test_raster_pallas.py), the one the bf16 modes
+# are held on (tests/test_torch_bf16_modes.py)
+GRAD_CASES = {**CASES, "pallas_small": dict(scene=(0, 64), size=(128, 32))}
 
 
 def case_inputs(case):
     """Numpy scene, JAX camera, port camera and a seeded target image."""
-    spec = CASES[case]
+    spec = GRAD_CASES[case]
     s = {k: v.astype(np.float32) for k, v in _scene(*spec["scene"], **spec.get("kw", {})).items()}
     w, h = spec["size"]
     jc = j_make_camera(np.eye(3), np.array([0.0, 0.0, spec.get("dist", 4.0)]), 0.8, 0.8, w, h)
@@ -48,16 +52,17 @@ def _loss(out, target, mean, absolute):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_grads(case, raster_name="reference"):
-    """jax.grad of a JAX rasterizer, as numpy, per parameter + offset."""
+def jax_grads(case, raster_name="reference", precision=("f32", "f32")):
+    """jax.grad of a JAX rasterizer, as numpy, per parameter + offset;
+    `precision` is the Pallas rasterizer's (attr_precision, grad_precision)."""
     s, jc, _, target = case_inputs(case)
     if raster_name == "reference":
         raster = functools.partial(j_raster, tile_size=(16, 16))
     else:
         from gaussian_mesh_splatting_tpu.ops.rasterize_pallas import rasterize_pallas
 
-        raster = functools.partial(rasterize_pallas, interpret=True, grad_precision="f32",
-                                   attr_precision="f32")
+        raster = functools.partial(rasterize_pallas, interpret=True,
+                                   attr_precision=precision[0], grad_precision=precision[1])
 
     def loss_fn(p, offset):
         out = raster(p["means3d"], p["scales"], p["rotations"], p["opacities"], jc,
@@ -70,13 +75,14 @@ def jax_grads(case, raster_name="reference"):
     return {**{k: np.asarray(v) for k, v in g.items()}, "mean2d_offset": np.asarray(g_off)}
 
 
-def torch_grads(case, backend):
+def torch_grads(case, backend, **raster_kw):
     s, _, tc, target = case_inputs(case)
     raster = rasterize_cuda if backend == "cuda_path" else rasterize_reference
     p = {k: torch.tensor(s[k], requires_grad=True) for k in PARAMS}
     offset = torch.zeros((s["means3d"].shape[0], 2), requires_grad=True)
     out = raster(p["means3d"], p["scales"], p["rotations"], p["opacities"], tc,
-                 bg=torch.tensor(BG), shs=p["shs"], sh_degree=2, mean2d_offset=offset)
+                 bg=torch.tensor(BG), shs=p["shs"], sh_degree=2, mean2d_offset=offset,
+                 **raster_kw)
     _loss(out, torch.tensor(target), torch.mean, torch.abs).backward()
     return {**{k: v.grad.numpy() for k, v in p.items()}, "mean2d_offset": offset.grad.numpy()}
 
