@@ -1,0 +1,164 @@
+"""Training traffic: one state and the port's training step
+(`make_train_step`, as `apps/train` builds it), one view a step in the
+traffic's order. Set-up runs the checked steps through the window's own
+call and feed, then the warm-up steps; the window runs steps for
+`seconds`. In a traced run the step's `mark` events time its stages in the
+window, and a stretch of as many seconds under the profiler follows. The
+reference follows the checked steps once the program is freed."""
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+from . import free, peak_bytes, steady_host, sync, timed, walk
+from .. import program, scenes, tracing
+from ..counts import ops
+from ..reference import exact_float32
+from ..reference.train import train_steps
+
+
+def _norms(tensors: dict) -> dict:
+    return {k: (0.0 if v is None else float(torch.linalg.vector_norm(v.detach().float())))
+            for k, v in tensors.items()}
+
+
+def _leaf_gaps(got: dict, want: dict, keys) -> dict:
+    """Each leaf's |got - want| against want or the median leaf's reading,
+    whichever is larger."""
+    med = statistics.median(want.values())
+    return {k: abs(got[k] - want[k]) / max(want[k], med, 1e-30) for k in keys}
+
+
+def _worst(gaps: dict) -> tuple[float, str]:
+    return max(((v, k) for k, v in gaps.items()), default=(0.0, ""))
+
+
+def _elem_median(got: dict, want: dict) -> float:
+    """The median, over every element of every leaf where the reference's
+    first gradient is not 0, of |got - want| / |want|: a rounding of every
+    Gaussian's gradient moves it, the few Gaussians whose (pixel, pair)
+    inclusions flip at a cut-off do not. 1 where the program has no
+    gradient."""
+    if any(got[k] is None for k in want):
+        return 1.0
+    rel = [((got[k] - want[k]).abs() / want[k].abs())[want[k] != 0].flatten() for k in want]
+    return float(torch.cat(rel).float().median())
+
+
+def train_numbers(prog: dict, ref: dict) -> tuple[dict, dict]:
+    """(compared numbers, diagnostics) of the training check: each step's
+    loss, the first gradient's norm and the change's norm after the checked
+    steps, and the norm of the first gradient's difference, each leaf's
+    against the reference's reading or the median leaf's, the worst leaf;
+    and the median leaf's reading of each of the three gradient and change
+    numbers, which a single leaf cannot move.
+    Leaves whose reference gradient is under 1e-3 of the median leaf's move
+    by round-off alone and are left out of the change."""
+    g_ref = _norms(ref["first_grad"])
+    g_med = statistics.median(g_ref.values())
+    moving = [k for k in g_ref if g_ref[k] >= 1e-3 * g_med]
+    grad_gaps = _leaf_gaps(_norms(prog["first_grad"]), g_ref, g_ref)
+    grad, grad_leaf = _worst(grad_gaps)
+    change_gaps = _leaf_gaps(_norms(prog["change"]), _norms(ref["change"]), moving)
+    change, change_leaf = _worst(change_gaps)
+    diff = {k: float(torch.linalg.vector_norm((prog["first_grad"][k] - ref["first_grad"][k]).float()))
+            if prog["first_grad"][k] is not None else g_ref[k] for k in g_ref}
+    diff_gaps = {k: diff[k] / max(g_ref[k], g_med, 1e-30) for k in g_ref}
+    diff_gap, diff_leaf = _worst(diff_gaps)
+    numbers = {
+        "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])),
+        "grad1_elem_median": _elem_median(prog["first_grad"], ref["first_grad"]),
+        "grad1_norm_gap": grad,
+        "grad1_norm_median_gap": statistics.median(grad_gaps.values()),
+        "change3_norm_gap": change,
+        "change3_median_gap": statistics.median(change_gaps.values()) if change_gaps else 0.0,
+        "grad1_diff": diff_gap,
+        "grad1_diff_median": statistics.median(diff_gaps.values()),
+    }
+    diagnostics = {"losses": prog["losses"], "reference_losses": ref["losses"],
+                   "grad1_norm_gap_leaf": grad_leaf, "change3_norm_gap_leaf": change_leaf,
+                   "grad1_diff_leaf": diff_leaf, "grad1_diff_leaves": diff_gaps,
+                   "grad1_norm_gap_leaves": grad_gaps,
+                   "change3_gap_leaves": change_gaps,
+                   "left_out_of_change": sorted(set(g_ref) - set(moving)),
+                   "grad_norms": _norms(prog["first_grad"]), "reference_grad_norms": g_ref}
+    return numbers, diagnostics
+
+
+def _sample(scene, position: int, view_index: int, params: dict) -> dict:
+    counts = walk(scene, params, view_index)
+    n_params = sum(int(p.numel()) for p in params.values())
+    model = ops.model_flops(scene.kind, scene.n_gaussians, int(scene.faces.shape[0]),
+                            scene.n_vertices)
+    return {"position": position, "view": view_index, "walk": counts,
+            "flops": ops.step_flops(model, scene.n_gaussians, n_params, scene.height,
+                                    scene.width, counts)}
+
+
+def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dict,
+        render_kwargs: dict | None) -> dict:
+    traffic = c["traffic"]
+    marks = tracing.StageMarks(dev) if trace else None
+    trainer = program.Trainer(scene, render_kwargs, mark=marks)
+    phases["program"] = time.perf_counter()
+    order = scenes.view_order(seed, len(scene.views), traffic["order"])
+    checked = [next(order) for _ in range(traffic["checked_steps"])]
+    losses = []
+    for j, i in enumerate(checked):
+        losses.append(float(trainer.step(i)))
+        if j == 0:
+            first_grad = {k: None if m is None else m / (1 - trainer.beta1)
+                          for k, m in trainer.adam_first_moments().items()}
+    change = {k: p.detach() - scene.params[k] for k, p in trainer.params().items()}
+    prog = {"losses": losses, "first_grad": first_grad, "change": change}
+    phases["checked_steps"] = time.perf_counter()
+    for _ in range(traffic["warmup_steps"]):
+        trainer.step(next(order))
+    sync(dev)
+
+    window_losses = []
+
+    def step(_):
+        window_losses.append(trainer.step(next(order)))
+
+    first = len(marks.steps) if trace else 0
+    phases["window"] = time.perf_counter()
+    with steady_host():
+        steps, window_s, tenths = timed(seconds, step, dev)
+    ctx = {"steps": steps, "window_s": window_s}
+    if trace:
+        ctx["stage_ms"] = marks.stage_ms(first, len(marks.steps))
+        sample = set(traffic["sample_launches"])
+        snapshots = []
+
+        def traced_step(n):
+            i = next(order)
+            if n in sample:
+                snapshots.append((n, i, {k: p.detach().clone()
+                                         for k, p in trainer.params().items()}))
+            window_losses.append(trainer.step(i))
+
+        with steady_host(), tracing.Profiled(dev) as profiled:
+            marks.timeline = profiled.timeline
+            timed(seconds, traced_step, dev)
+        marks.timeline = None
+        ctx["trace"] = profiled.summarize(c["trace_dir"])
+        del profiled
+    failed = int((~torch.isfinite(torch.stack(window_losses))).sum())
+    attempted = len(window_losses)
+    peak = peak_bytes(dev)
+    del trainer, window_losses
+    free(dev)
+
+    exact_float32()
+    if trace:
+        ctx["samples"] = [_sample(scene, k, i, params) for k, i, params in snapshots]
+        del snapshots
+        free(dev)
+    ref = train_steps(scene, checked)
+    numbers, diagnostics = train_numbers(prog, ref)
+    return {"e2e": {"train_step_ms": 1e3 * window_s / steps},
+            "attempted": attempted, "failed": failed, "peak": peak, "numbers": numbers,
+            "diagnostics": dict(diagnostics, window_rate_tenths=tenths), "ctx": ctx}

@@ -1,0 +1,107 @@
+"""The system under test, driven through its own entry points: the port's
+training step as `apps/train` builds it (`train.loop.make_train_step`) and
+its renderer as `apps/render` calls it, with the model of each kind made
+by `program/<gs_type>.py`. The only modules of the benchmark that import
+the program; they hand the program the inputs that `scenes` made and take
+back what the program produces."""
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+from gaussian_mesh_splatting_tpu_torch.renderer import render
+from gaussian_mesh_splatting_tpu_torch.train import loop as train_loop
+from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
+
+PACKAGE = "gaussian_mesh_splatting_tpu_torch"
+KERNELS = {"fwd": "composite_fwd_kernel", "bwd": "composite_bwd_kernel"}
+
+
+def exact_float32() -> None:
+    """What `apps/train` sets before it trains: no TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def cameras(scene, dev) -> list:
+    return [make_camera(R, T, scene.fovx, scene.fovy, scene.width, scene.height, device=dev)
+            for R, T in scene.views]
+
+
+def _kind(scene):
+    return importlib.import_module(f".{scene.kind}", __name__)
+
+
+def model_for(scene):
+    """The port's model of the scene's kind, from `program/<kind>.py`."""
+    return _kind(scene).model(scene)
+
+
+def optimization_for(scene) -> dict:
+    """The port's optimization settings of the scene's kind (`program/<kind>.py`
+    names them: `OPTIMIZATION`, a gs_type of the port)."""
+    return optimization_config(_kind(scene).OPTIMIZATION)
+
+
+def model_state(scene) -> dict:
+    return {"params": scene.params, "consts": {"faces": scene.faces},
+            "alive": torch.ones(scene.n_gaussians, dtype=torch.bool, device=scene.faces.device)}
+
+
+class Trainer:
+    """The port's training state and step. `render_kwargs` go to the
+    rasterizer (the precision modes of a control run); `mark` is the step's
+    stage hook."""
+
+    def __init__(self, scene, render_kwargs: dict | None = None, mark=None):
+        exact_float32()
+        dev = scene.faces.device
+        self.scene = scene
+        self.cams = cameras(scene, dev)
+        self.state = make_train_state(model_state(scene), optimization_for(scene))
+        self.state.step = scene.start_step
+        self.state.active_sh_degree = scene.sh_degree
+        self.step_fn = train_loop.make_train_step(model_for(scene), optimization_for(scene),
+                                                  scene.sh_degree, render_kwargs=render_kwargs,
+                                                  mark=mark)
+
+    def step(self, i: int) -> torch.Tensor:
+        """One step on view i; its loss, a 0-d tensor on the device."""
+        _, metrics = self.step_fn(self.state, self.cams[i], self.scene.gt[i], self.scene.bg)
+        return metrics["loss"]
+
+    def params(self) -> dict:
+        return {g["name"]: g["params"][0] for g in self.state.optimizer.param_groups}
+
+    def adam_first_moments(self) -> dict:
+        """Each parameter's Adam first moment, or None before its first
+        update."""
+        opt = self.state.optimizer
+        return {g["name"]: opt.state.get(g["params"][0], {}).get("exp_avg")
+                for g in opt.param_groups}
+
+    @property
+    def beta1(self) -> float:
+        return self.state.optimizer.param_groups[0]["betas"][0]
+
+
+class Renderer:
+    """The port's render path: the bag made once, as `apps/render` makes it,
+    then one `render(..., backend="auto")` a view."""
+
+    def __init__(self, scene, render_kwargs: dict | None = None):
+        dev = scene.faces.device
+        self.scene = scene
+        self.cams = cameras(scene, dev)
+        self.kwargs = render_kwargs or {}
+        with torch.no_grad():
+            self.bag = model_for(scene).to_bag(model_state(scene))
+
+    @torch.no_grad()
+    def view(self, i: int) -> torch.Tensor:
+        """View i clamped to [0, 1], on the device."""
+        out = render(self.bag, self.cams[i], self.scene.bg, sh_degree=self.scene.sh_degree,
+                     backend="auto", **self.kwargs)
+        return torch.clamp(out.image, 0.0, 1.0)
