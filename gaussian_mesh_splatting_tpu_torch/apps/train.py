@@ -34,8 +34,10 @@ every 100th (every iteration under `--detect_anomaly`, which also turns on
 the loop keeps a detached copy of the step's inputs, which a non-finite loss
 dumps to `{model}/debug_dump_<it>.npz` before the run raises.
 `--profile_steps START:STOP` traces steps START..STOP with `torch.profiler`
-into `{model}/profile/trace.json`; `--port` serves the SIBR viewer's frames
-from the training loop (`apps/network_gui.py`, on `--ip`).
+into `{model}/profile/trace.json` and records the port's spans and counts
+over them (`utils/profiling.Recording`) into `{model}/profile/spans.json`;
+`--port` serves the SIBR viewer's frames from the training loop
+(`apps/network_gui.py`, on `--ip`).
 
 Parallel modes (`parallel/`), one process per device under `torchrun`:
 
@@ -217,7 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ip", default="127.0.0.1", help="network GUI host")
     p.add_argument("--port", type=int, default=0, help="network GUI port (0 disables)")
     p.add_argument("--profile_steps", default=None,
-                   help="START:STOP: trace these steps into <model>/profile/trace.json")
+                   help="START:STOP: trace these steps into <model>/profile/trace.json "
+                        "and their spans into spans.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -281,7 +284,7 @@ def _train(args, profile_range: tuple[int, int] | None,
         psnr,
         reset_opacity,
     )
-    from ..utils.profiling import MetricsLogger, profiler_trace
+    from ..utils.profiling import MetricsLogger, Recording, profiler_trace, tracing
     from .network_gui import NetworkGUI, image_to_bytes, parse_camera
 
     device = resolve_device(args.device)
@@ -402,7 +405,9 @@ def _train(args, profile_range: tuple[int, int] | None,
             np.save(os.path.join(args.model_path, "xyz", f"{it}.npy"), xyz.cpu().numpy())
         if profile_range and main_rank and it == profile_range[0]:
             sync()
-            profiling.enter_context(profiler_trace(os.path.join(args.model_path, "profile")))
+            profile_dir = os.path.join(args.model_path, "profile")
+            profiling.enter_context(profiler_trace(profile_dir))
+            spans = profiling.enter_context(tracing(Recording(device)))
         # GUI poll: while a viewer is connected, serve its frames; go on to
         # a train step once it asks for training (unchecking "train" in the
         # viewer pauses the optimization while the frames stay live)
@@ -459,8 +464,8 @@ def _train(args, profile_range: tuple[int, int] | None,
         if profile_range and main_rank and it == profile_range[1]:
             sync()
             profiling.close()
-            say(f"[it {it}] profiled steps {profile_range[0]}..{it} into "
-                f"{os.path.join(args.model_path, 'profile')}")
+            spans.write(os.path.join(profile_dir, "spans.json"))
+            say(f"[it {it}] profiled steps {profile_range[0]}..{it} into {profile_dir}")
 
         if metrics["overflow"] > 0 and pair_capacity is not None:
             pair_capacity *= 2

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
+
 
 def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
     """Flip sign so the real (first) component is non-negative. (..., 4)."""
@@ -71,7 +73,9 @@ def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )  # (B, 4 candidates, 4)
+    # a copy from host memory: on a card the host waits for the stream
     floor = q_abs.new_tensor(0.1)
+    count("host_syncs")
     quat_candidates = quat_by_rijk / (2.0 * torch.maximum(q_abs[..., None], floor))
     best = torch.argmax(q_abs, dim=-1)
     out = torch.take_along_dim(quat_candidates, best[:, None, None], dim=-2)[:, 0, :]

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...utils.profiling import count
 from .lbs import LbsModel, batch_rodrigues, lbs, vertices2landmarks
 
 SHAPE_SPACE = 300
@@ -198,6 +199,9 @@ def flame_forward(
 def transform_flame_vertices(vertices: torch.Tensor, enlargement: torch.Tensor) -> torch.Tensor:
     """Blender -> scene axes and the per-vertex enlargement: squeeze the
     batch, [x, z, -y], then multiply by the (trainable) enlargement."""
+    # the list index and the sign vector: copies from host memory, on a card
+    # the host waits for the stream at each
     v = vertices.reshape(-1, 3)[:, [0, 2, 1]]
     v = v * torch.tensor([1.0, -1.0, 1.0], dtype=v.dtype, device=v.device)
+    count("host_syncs", 2)
     return v * enlargement

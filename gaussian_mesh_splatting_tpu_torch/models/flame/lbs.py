@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import count
+
 
 class LbsModel(NamedTuple):
     """The rig's static (non-trainable) tensors."""
@@ -60,7 +62,9 @@ def vertices2joints(j_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.
 def _with_zeros(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3, 1) -> (..., 4, 4) homogeneous."""
     top = torch.cat([R, t], dim=-1)  # (..., 3, 4)
+    # a copy from host memory: on a card the host waits for the stream
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    count("host_syncs")
     return torch.cat([top, bottom.expand(*R.shape[:-2], 1, 4)], dim=-2)
 
 
@@ -80,8 +84,10 @@ def batch_rigid_transform(
     """
     parents = tuple(int(p) for p in parents)
     J = joints.shape[1]
+    # a copy from host memory: on a card the host waits for the stream, twice
     parent_idx = torch.tensor([max(p, 0) for p in parents], device=joints.device)
     has_parent = torch.tensor([p >= 0 for p in parents], device=joints.device)[None, :, None]
+    count("host_syncs", 2)
     rel_joints = joints - torch.where(has_parent, joints[:, parent_idx], 0.0)
     local = _with_zeros(rot_mats, rel_joints[..., None])  # (B, J, 4, 4)
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from .projection import ProjectedGaussians
 
 
@@ -112,8 +113,13 @@ def bin_gaussians(
     span = torch.where(proj.valid[order], sx * sy, 0)
     ends = torch.cumsum(span, 0)
     # the one host synchronisation per render: the pair list's length
-    total = int(ends[-1].item()) if n > 0 else 0
+    total = 0
+    if n > 0:
+        with profiling.span("bin_sync"):
+            total = int(ends[-1].item())
+            profiling.count("host_syncs")
     n_pairs = total if pair_capacity is None else min(total, pair_capacity)
+    profiling.count("pairs", n_pairs)
 
     rank = torch.repeat_interleave(
         torch.arange(n, device=dev), span, output_size=total

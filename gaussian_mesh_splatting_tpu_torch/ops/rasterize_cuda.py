@@ -48,6 +48,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..core.camera import Camera
+from ..utils import profiling
 from . import cuda_build
 from .binning import Binning, bin_gaussians
 from .projection import preprocess
@@ -509,18 +510,19 @@ class _Composite(torch.autograd.Function):
         gaussians = (mean2d, conic, opacity, color, depth)
         lists = (pair_gaussian, tile_start, tile_end)
         bf16_attrs = attr_precision == "bf16"
-        if mean2d.is_cuda:
-            # packed once, read by the forward kernel and again by the backward
-            pack = pack_attributes_bf16 if bf16_attrs else pack_attributes
-            attrs = pack(*gaussians)
-            planes, nc = composite_fwd_cuda(*gaussians, *lists, height, width,
-                                            tile_order=tile_order, attrs=attrs)
-            ctx.save_for_backward(*gaussians, *lists, planes, nc, tile_order, attrs)
-        else:
-            if bf16_attrs:  # the values the kernels read from the bf16 table
-                gaussians = round_attributes(*gaussians)
-            planes, nc = composite_fwd_plain(*gaussians, *lists, height, width)
-            ctx.save_for_backward(*gaussians, *lists, planes, nc)
+        with profiling.span("composite_fwd"):
+            if mean2d.is_cuda:
+                # packed once, read by the forward kernel and again by the backward
+                pack = pack_attributes_bf16 if bf16_attrs else pack_attributes
+                attrs = pack(*gaussians)
+                planes, nc = composite_fwd_cuda(*gaussians, *lists, height, width,
+                                                tile_order=tile_order, attrs=attrs)
+                ctx.save_for_backward(*gaussians, *lists, planes, nc, tile_order, attrs)
+            else:
+                if bf16_attrs:  # the values the kernels read from the bf16 table
+                    gaussians = round_attributes(*gaussians)
+                planes, nc = composite_fwd_plain(*gaussians, *lists, height, width)
+                ctx.save_for_backward(*gaussians, *lists, planes, nc)
         ctx.image_size = (height, width)
         # the JAX package: a bf16 table's per-pair gradients are a bf16 table
         # and its per-Gaussian sums are cast to bf16; grad_precision="bf16"
@@ -533,20 +535,21 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_planes, _grad_nc):
-        *inputs, planes, nc = ctx.saved_tensors[:10]
-        height, width = ctx.image_size
-        if inputs[0].is_cuda:
-            tile_order, attrs = ctx.saved_tensors[10:]
-            grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes,
-                                       tile_order=tile_order, attrs=attrs,
-                                       round_pairs=ctx.round_pairs)
-        else:
-            cot = _cotangent_planes(grad_planes, height, width, inputs[0].device)
-            grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot,
-                                        round_pairs=ctx.round_pairs)
-        if ctx.round_totals:
-            grads = grads.to(torch.bfloat16).float()
-        return (*split_columns(grads), *[None] * 8)
+        with profiling.span("composite_bwd"):
+            *inputs, planes, nc = ctx.saved_tensors[:10]
+            height, width = ctx.image_size
+            if inputs[0].is_cuda:
+                tile_order, attrs = ctx.saved_tensors[10:]
+                grads = composite_bwd_cuda(*inputs, height, width, planes[3], nc, grad_planes,
+                                           tile_order=tile_order, attrs=attrs,
+                                           round_pairs=ctx.round_pairs)
+            else:
+                cot = _cotangent_planes(grad_planes, height, width, inputs[0].device)
+                grads = composite_bwd_plain(*inputs, height, width, planes[3], nc, cot,
+                                            round_pairs=ctx.round_pairs)
+            if ctx.round_totals:
+                grads = grads.to(torch.bfloat16).float()
+            return (*split_columns(grads), *[None] * 8)
 
 
 def composite(
@@ -607,19 +610,21 @@ def rasterize_cuda(
     [lo, hi): `image`, `depth` and `alpha` hold the pixel rows [lo * TILE,
     min(hi * TILE, H)), each equal to the same rows of the whole render (the
     kernels walk nothing outside the band)."""
-    proj = preprocess(
-        means3d, scales, rotations, opacities, cam,
-        shs=shs, colors=colors, sh_degree=sh_degree,
-        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
-        antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
-        radius_mode=radius_mode,
-    )
+    with profiling.span("project"):
+        proj = preprocess(
+            means3d, scales, rotations, opacities, cam,
+            shs=shs, colors=colors, sh_degree=sh_degree,
+            scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+            antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
+            radius_mode=radius_mode,
+        )
     h, w = cam.height, cam.width
     n_ty, n_tx = _tile_grid(h, w)
-    binning = bin_gaussians(
-        proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
-        pair_capacity=pair_capacity, row_band=row_band,
-    )
+    with profiling.span("bin"):
+        binning = bin_gaussians(
+            proj, tile_h=TILE, tile_w=TILE, n_tiles_y=n_ty, n_tiles_x=n_tx,
+            pair_capacity=pair_capacity, row_band=row_band,
+        )
     planes, _nc = composite(
         proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth,
         binning, h, w, attr_precision, grad_precision,

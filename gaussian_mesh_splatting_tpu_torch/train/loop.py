@@ -20,6 +20,7 @@ import torch
 
 from ..core.camera import Camera
 from ..renderer import render
+from ..utils.profiling import count, span
 from .loss import photometric_loss, psnr
 from .state import TrainState, apply_lr_schedules
 
@@ -67,7 +68,8 @@ def make_train_step(
     device, except `overflow`, a host int. `mark`, if given, is called with
     "start" and then with the name of each stage as it ends ("to_bag",
     "render", "loss", "backward", "adam", "stats"): a timing hook, e.g. one
-    that records a CUDA event.
+    that records a CUDA event. The same six stages are top-level spans of
+    the port's tracer (`utils/profiling`), with the step as request id.
 
     The parallel modes (`parallel/`) run this same step with two hooks:
     `render_fn(bag, cam, bg, mean2d_offset)` renders this process's portion
@@ -90,56 +92,66 @@ def make_train_step(
                           mean2d_offset=mean2d_offset, **render_kwargs)
 
     def train_step(state: TrainState, cam: Camera, gt: torch.Tensor, bg: torch.Tensor):
+        step = state.step  # the request id of the step's spans
         mark("start")
-        capacity = state.alive.shape[0]
-        offset = torch.zeros((capacity, 2), dtype=torch.float32, device=state.alive.device,
-                             requires_grad=True)
-        bag = _masked_bag(model, state, to_bag_kwargs)
+        with span("to_bag", step):
+            capacity = state.alive.shape[0]
+            offset = torch.zeros((capacity, 2), dtype=torch.float32, device=state.alive.device,
+                                 requires_grad=True)
+            bag = _masked_bag(model, state, to_bag_kwargs)
         mark("to_bag")
-        out = render_fn(bag, cam, bg, offset)
+        with span("render", step):
+            out = render_fn(bag, cam, bg, offset)
         mark("render")
-        loss, l1 = photometric_loss(out.image, gt, config.lambda_dssim)
+        with span("loss", step):
+            loss, l1 = photometric_loss(out.image, gt, config.lambda_dssim)
         mark("loss")
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("backward", step):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         mark("backward")
-        with torch.no_grad():
-            params = [p for group in state.optimizer.param_groups for p in group["params"]
-                      if p.grad is not None]
-            grads, g_offset = [p.grad for p in params], offset.grad
-            if reduce is not None:
-                grads, g_offset = reduce.portions(grads, g_offset)
-            # densification statistics (gaussian_model.py:416-418): the
-            # norm of the NDC-space positional gradient of visible rows; the
-            # reference's dL/dmean2D is the pixel gradient scaled by
-            # (0.5 W, 0.5 H), the CUDA backward's ddelx_dx factor
-            visible = out.radii > 0
-            scale_vec = torch.tensor([0.5 * cam.width, 0.5 * cam.height],
-                                     dtype=torch.float32, device=offset.device)
-            gnorm = torch.linalg.vector_norm(g_offset * scale_vec, dim=-1)
-            adds = (torch.where(visible, gnorm, 0.0), visible.to(torch.float32),
-                    out.radii.to(torch.float32))
-            metrics = {"loss": loss.detach(), "l1": l1.detach(), "psnr": psnr(out.image, gt),
-                       "num_visible": visible.sum()}
-            if reduce is not None:
-                grads, adds, metrics = reduce.cameras(grads, adds, metrics)
-                for p, g in zip(params, grads):
-                    p.grad = g
-        apply_lr_schedules(state.optimizer, state.step)
-        state.optimizer.step()
+        with span("adam", step):
+            with torch.no_grad():
+                params = [p for group in state.optimizer.param_groups for p in group["params"]
+                          if p.grad is not None]
+                grads, g_offset = [p.grad for p in params], offset.grad
+                if reduce is not None:
+                    grads, g_offset = reduce.portions(grads, g_offset)
+                # densification statistics (gaussian_model.py:416-418): the
+                # norm of the NDC-space positional gradient of visible rows; the
+                # reference's dL/dmean2D is the pixel gradient scaled by
+                # (0.5 W, 0.5 H), the CUDA backward's ddelx_dx factor
+                visible = out.radii > 0
+                # a copy from pageable host memory: on a card the host waits
+                # for the stream
+                scale_vec = torch.tensor([0.5 * cam.width, 0.5 * cam.height],
+                                         dtype=torch.float32, device=offset.device)
+                count("host_syncs")
+                gnorm = torch.linalg.vector_norm(g_offset * scale_vec, dim=-1)
+                adds = (torch.where(visible, gnorm, 0.0), visible.to(torch.float32),
+                        out.radii.to(torch.float32))
+                metrics = {"loss": loss.detach(), "l1": l1.detach(),
+                           "psnr": psnr(out.image, gt), "num_visible": visible.sum()}
+                if reduce is not None:
+                    grads, adds, metrics = reduce.cameras(grads, adds, metrics)
+                    for p, g in zip(params, grads):
+                        p.grad = g
+            apply_lr_schedules(state.optimizer, state.step)
+            state.optimizer.step()
         mark("adam")
 
-        with torch.no_grad():
-            grad_add, denom_add, radii = adds
-            stats = state.stats
-            stats.grad_accum += grad_add
-            stats.denom += denom_add
-            torch.maximum(stats.max_radii, radii, out=stats.max_radii)
-        # pairs dropped by the capacity-bounded binning this step: nonzero
-        # means the training loop must grow pair_capacity
-        overflow = out.overflow if out.overflow is not None else 0
-        metrics["overflow"] = overflow if reduce is None else reduce.overflow(overflow)
+        with span("stats", step):
+            with torch.no_grad():
+                grad_add, denom_add, radii = adds
+                stats = state.stats
+                stats.grad_accum += grad_add
+                stats.denom += denom_add
+                torch.maximum(stats.max_radii, radii, out=stats.max_radii)
+            # pairs dropped by the capacity-bounded binning this step: nonzero
+            # means the training loop must grow pair_capacity
+            overflow = out.overflow if out.overflow is not None else 0
+            metrics["overflow"] = overflow if reduce is None else reduce.overflow(overflow)
         mark("stats")
         state.step += 1
         return state, metrics

@@ -1,2 +1,2 @@
-from .profiling import MetricsLogger, StepTimer, profiler_trace
+from .profiling import MetricsLogger, profiler_trace
 from .general import safe_state

@@ -97,6 +97,10 @@ ALLOWED = {
                                               "outputs: the port's tools write their JSON "
                                               "themselves"),
     **{("tool", name): TPU_PROFILES for name in PROFILE_SCRIPTS},
+    **{("name", m, "StepTimer"): ("a host-clock EMA step timer that nothing read: the "
+                                  "port's step and stage times are the tracer's spans "
+                                  "(utils/profiling.Recording) and the train step's mark "
+                                  "hook") for m in ("utils/profiling.py", "utils/__init__.py")},
 }
 
 

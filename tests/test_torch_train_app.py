@@ -430,6 +430,16 @@ def test_profile_steps_write_a_trace(dataset, tmp_path):
     # steps 2 and 3, each one Adam step
     assert sum(e.get("name") == "Optimizer.step#Adam.step" for e in events) == 2
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    # the port's spans of the same steps: six stages each, the step as request
+    with open(os.path.join(model, "profile", "spans.json")) as f:
+        spans = json.load(f)
+    stages = [s for s in spans["spans"] if s["parent"] is None]
+    assert [s["name"] for s in stages] == ["to_bag", "render", "loss", "backward", "adam",
+                                           "stats"] * 2
+    assert sorted({s["request"] for s in spans["spans"]}) == [1, 2]
+    assert {s["path"] for s in spans["spans"]} >= {"render/bin/bin_sync",
+                                                   "backward/composite_bwd"}
+    assert spans["totals"]["host_syncs"] == 6 and spans["totals"]["pairs"] > 0
 
 
 # ---------------------------------------------------------------- network GUI
@@ -636,18 +646,12 @@ def test_train_app_serves_the_gui(dataset, tmp_path, monkeypatch):
 
 # ------------------------------------------------------------------ utilities
 
-def test_step_timer_and_safe_state(capsys):
+def test_safe_state_seeds_and_silences(capsys):
     import random
     import sys
 
     from gaussian_mesh_splatting_tpu_torch.utils.general import safe_state
-    from gaussian_mesh_splatting_tpu_torch.utils.profiling import StepTimer
 
-    timer = StepTimer(beta=0.5)
-    for pause in (0.02, 0.0):
-        with timer:
-            time.sleep(pause)
-    assert timer.ema_ms >= 0.5 * 20.0  # beta times the first 20 ms step, at least
     stdout = sys.stdout
     try:
         safe_state(silent=False, seed=3)
