@@ -155,9 +155,21 @@ Phases (any failure exits nonzero; nothing is caught):
      in the full-bf16 and the exact mode from one state (the losses fall,
      the final test PSNRs within BF16_PSNR_GAP dB) and BF16_GRAD_ITERS in
      (f32, bf16), every entry point's launches counted from 0 and checked;
- 12. print the kernels line (with each kernel's launches on the render path,
+ 12. the projection kernels (`projection_kernels`, csrc/preprocess.cu) on
+     phase 2's gs_mesh, gs and gs_flame inputs and the gs_mesh input at SH
+     degrees 0, 1, 2 and 4, in both radius modes with antialiasing off and
+     on: the forward bit-equal to `preprocess` in all nine outputs; the VJP
+     kernel per leaf, on the training loss's cotangents and on seeded ones,
+     within PROJECT_PLAIN_TOL x max|g| of its plain version
+     `preprocess_bwd_plain` on every row, its distances from autograd of
+     `preprocess` in float32 and float64 reported; each kernel's time alone
+     (median of 10, and queued) beside its bound from the bytes and the
+     chain's time;
+     their launches on apps.render and on PROJECT_STEPS steps of each
+     training path, with the tracer's `project_kernel` count a step;
+ 13. print the kernels line (with each kernel's launches on the render path,
      on each training path, `apps.render_flame`, each path of phase 7 (per
-     rank: phase 8) and phases 9 to 11,
+     rank: phase 8) and phases 9 to 11; the projection kernels' from phase 12,
      its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
      inputs, each bound from the operations that this run's data needs,
      each radius mode's pairs and times, and the bf16 table's times, bounds
@@ -2813,6 +2825,336 @@ def parallel_and_native(ns, dev, card: str) -> dict:
     return {"fwd": fwd, "bwd": bwd, **out}
 
 
+# ---- phase 12: the projection kernels (csrc/preprocess.cu) ------------------
+
+PROJECT_PLAIN_TOL = 1e-7  # x max|g| per leaf, every row: the VJP kernel against its plain version
+PROJECT_GRAD_TOL = 1e-5  # x max|g|: rows of the VJP kernel this far from float32 autograd are counted
+PROJECT_STEPS = 5  # training steps a path, for the launch counts
+PROJECT_SH_SWEEP = (0, 1, 2, 4)  # the other SH degrees, on the gs_mesh input
+LEAVES = ("means3d", "scales", "rotations", "opacities", "shs")
+
+
+def bit_mismatches(a, b) -> int:
+    """Entries of two same-shaped tensors whose bits differ (NaN meets NaN)."""
+    import torch
+
+    a, b = a.reshape(b.shape).contiguous(), b.contiguous()
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+def projection_bytes(n: int, coeffs: int) -> dict:
+    """Bytes the projection kernels must move at n Gaussians, each read or
+    written once: forward, the five inputs (SH: the coefficients used), the
+    mean2d offset and alive in, its nine outputs out; backward, the five
+    inputs and five cotangents (10 floats) in, five gradient rows out (the
+    shs gradient whole, 16 coefficients)."""
+    inputs = 4 * (3 + 3 + 4 + 1 + 3 * coeffs)
+    fwd = n * (inputs + 4 * 2 + 1 + 4 * (2 + 1 + 3 + 1 + 3 + 1 + 2) + 1)
+    bwd = n * (inputs + 4 * 10 + 4 * (3 + 3 + 4 + 1 + 3 * 16))
+    return {"fwd_bytes": fwd, "bwd_bytes": bwd}
+
+
+def loss_cotangents(proj, cam, gt, bg) -> tuple:
+    """The cotangents a training step hands the projection: the photometric
+    loss against `gt` differentiated through B2 to the projected mean2d,
+    depth, conic, opacity and colour."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians
+    from gaussian_mesh_splatting_tpu_torch.train.loss import photometric_loss
+
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (proj.mean2d, proj.depth, proj.conic, proj.opacity, proj.color)]
+    binning = bin_gaussians(proj, tile_h=rc.TILE, tile_w=rc.TILE,
+                            n_tiles_y=-(-cam.height // rc.TILE), n_tiles_x=-(-cam.width // rc.TILE))
+    planes, _ = rc.composite(leaves[0], leaves[2], leaves[3], leaves[4], leaves[1], binning,
+                             cam.height, cam.width)
+    image = planes[:3].permute(1, 2, 0) + planes[3][..., None] * bg
+    return torch.autograd.grad(photometric_loss(image, gt, 0.2)[0], leaves)
+
+
+def vjp_errors(inputs, cam, aa: bool, mode: str, cots, sh_degree: int) -> dict:
+    """Per leaf, in units of its max|g| (of the call's largest gradient entry
+    where the leaf's is 0), the largest distance over rows: the VJP kernel
+    from its plain version `preprocess_bwd_plain` on the card ("vs_plain"),
+    from float32 autograd of the chain ("kernel") and from float64 autograd
+    ("kernel_vs_f64"), float32 autograd from float64 ("autograd_vs_f64");
+    the rows where the kernel is more than PROJECT_GRAD_TOL from float32
+    autograd ("rows_past_autograd"), and the entries whose finiteness
+    differs between the kernel and each of autograd and the plain version."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess, preprocess_bwd_plain
+
+    def autograd(dtype):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in inputs]
+        proj = preprocess(*leaves[:4], cam, shs=leaves[4], sh_degree=sh_degree,
+                          antialiasing=aa, radius_mode=mode)
+        return torch.autograd.grad((proj.mean2d, proj.depth, proj.conic, proj.opacity,
+                                    proj.color), leaves, tuple(c.to(dtype) for c in cots))
+
+    ref32, ref64 = autograd(torch.float32), autograd(torch.float64)
+    kern = rc.project_bwd_cuda(*inputs, cam, cots, sh_degree=sh_degree, antialiasing=aa)
+    plain = preprocess_bwd_plain(*inputs, cam, cots, sh_degree=sh_degree, antialiasing=aa)
+
+    def largest(g):
+        return float(g[torch.isfinite(g)].abs().max())
+
+    # a leaf whose gradient is 0 throughout (the rotations of isotropic
+    # Gaussians) is measured against the call's largest gradient entry
+    floor = max(largest(r) for r in ref64)
+
+    def rows(a, b):
+        """Each row's largest |a - b| over the entries finite in both."""
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        err = torch.where(fin, a.double() - b.double(), 0.0).abs()
+        return err.reshape(err.shape[0], -1).amax(dim=1)
+
+    out = {}
+    for name, k, p, r, r64 in zip(LEAVES, kern, plain, ref32, ref64):
+        scale = largest(r64) or floor
+        mine = rows(k, r) / scale
+        out[name] = {
+            "vs_plain": float(rows(k, p).max()) / scale,
+            "kernel": float(mine.max()),
+            "kernel_vs_f64": float(rows(k, r64).max()) / scale,
+            "autograd_vs_f64": float(rows(r, r64).max()) / scale,
+            "rows_past_autograd": int((mine > PROJECT_GRAD_TOL).sum()),
+            "nonfinite_mismatches": int((torch.isfinite(k) != torch.isfinite(r)).sum()),
+            "nonfinite_vs_plain": int((torch.isfinite(k) != torch.isfinite(p)).sum()),
+        }
+    return out
+
+
+def check_projection(label: str, bag, cam, gt, bg, dev, time_it: bool,
+                     sh_degree: int = SH_DEGREE, shs=None) -> dict:
+    """The projection kernels against the chain on one bag and camera (SH
+    from `shs`, else the bag's): the forward (through
+    `rasterize_cuda.project`, as the render path calls it) bit-equal to
+    `preprocess` in all nine outputs, and the VJP kernel per leaf, in both
+    radius modes with antialiasing off and on, under a seeded mean2d offset
+    and the bag's alive mask. The VJP on two sets of cotangents, the
+    training step's own (`loss_cotangents`) and seeded normal ones on every
+    row (degenerate Gaussians included), each leaf (`vjp_errors`) within
+    PROJECT_PLAIN_TOL x max|g| of its plain version on every row, with the
+    same non-finite entries as it and as float32 autograd. Its distances
+    from autograd of the chain in float32 and float64 are reported: two
+    float32 evaluations of one derivative in different orders, they part
+    by up to 4.3e-5 x max|g| on rows of gs_flame's scales, and by up to
+    0.35 on degenerate edge-on rows, where float32 autograd is itself that
+    far from float64 (H100, PERF.md).
+    With `time_it`, each kernel alone (median of 10, and queued) beside its
+    bound and the chain's times."""
+    import itertools
+
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess, preprocess_bwd_plain
+
+    gen = torch.Generator().manual_seed(19)
+    n = bag.num_gaussians
+    offset = (torch.randn(n, 2, generator=gen) * 1e-3).to(dev)
+    shs = bag.shs if shs is None else shs
+    inputs = (bag.xyz, bag.scaling, bag.rotation, bag.opacity, shs)
+    res = {"gaussians": n, "sh_degree": sh_degree, "fwd_mismatches": {}, "vjp_loss": {},
+           "vjp_seeded": {}}
+    for mode, aa in itertools.product(("tight", "cuda"), (False, True)):
+        case = f"{mode}{'_aa' if aa else ''}"
+        kw = dict(shs=shs, sh_degree=sh_degree, antialiasing=aa, mean2d_offset=offset,
+                  alive=bag.alive, radius_mode=mode)
+        with torch.no_grad():
+            want = preprocess(*inputs[:4], cam, **kw)
+            got = rc.project(*inputs[:4], cam, **kw)
+        torch.cuda.synchronize()
+        res["fwd_mismatches"][case] = {f: bit_mismatches(a, b)
+                                       for f, a, b in zip(want._fields, want, got)}
+        res["vjp_loss"][case] = vjp_errors(inputs, cam, aa, mode,
+                                           loss_cotangents(want, cam, gt, bg), sh_degree)
+        seeded = tuple(torch.randn(t.shape, generator=gen).to(dev) for t in
+                       (want.mean2d, want.depth, want.conic, want.opacity, want.color))
+        res["vjp_seeded"][case] = vjp_errors(inputs, cam, aa, mode, seeded, sh_degree)
+    log(f"[12] {label} ({n} Gaussians, SH {sh_degree}): forward bits differing "
+        f"{json.dumps(res['fwd_mismatches'])}")
+    for key in ("vjp_loss", "vjp_seeded"):
+        log(f"     {key} (x max|g|): {json.dumps(res[key])}")
+    if any(v for case in res["fwd_mismatches"].values() for v in case.values()):
+        raise SystemExit(f"{label}: the projection kernel is not bit-equal to preprocess")
+    for key in ("vjp_loss", "vjp_seeded"):
+        for case, errs in res[key].items():
+            for name, e in errs.items():
+                ok = e["vs_plain"] <= PROJECT_PLAIN_TOL
+                if e["nonfinite_mismatches"] or e["nonfinite_vs_plain"] or not ok:
+                    raise SystemExit(f"{label} {key} {case}: the VJP kernel's {name} gradient "
+                                     f"is off: {e}")
+    if time_it:
+        kw = dict(sh_degree=sh_degree)
+        cots = seeded
+        fwd = lambda: rc.project_fwd_cuda(*inputs, cam, mean2d_offset=offset,  # noqa: E731
+                                          alive=bag.alive, **kw)
+        bwd = lambda: rc.project_bwd_cuda(*inputs, cam, cots, **kw)  # noqa: E731
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+
+        def chain_fwd_bwd():
+            p = preprocess(*leaves[:4], cam, shs=leaves[4], sh_degree=sh_degree,
+                           mean2d_offset=offset, alive=bag.alive, radius_mode="tight")
+            torch.autograd.grad((p.mean2d, p.depth, p.conic, p.opacity, p.color), leaves, cots)
+
+        nbytes = projection_bytes(n, (sh_degree + 1) ** 2)
+        fwd_bound, bwd_bound = (bytes_and_bound(0, nbytes[k]) for k in ("fwd_bytes", "bwd_bytes"))
+        with torch.no_grad():
+            res["times"] = {
+                "fwd_ms": cuda_ms(fwd, reps=10), "fwd_queued_ms": cuda_ms_queued(fwd, reps=50),
+                "fwd_bound_ms": fwd_bound["bound_ms"], "fwd_bytes": nbytes["fwd_bytes"],
+                "bwd_ms": cuda_ms(bwd, reps=10), "bwd_queued_ms": cuda_ms_queued(bwd, reps=50),
+                "bwd_bound_ms": bwd_bound["bound_ms"], "bwd_bytes": nbytes["bwd_bytes"],
+                "chain_fwd_ms": cuda_ms(lambda: preprocess(
+                    *inputs[:4], cam, shs=shs, sh_degree=sh_degree, mean2d_offset=offset,
+                    alive=bag.alive, radius_mode="tight"), reps=10),
+                "plain_bwd_ms": cuda_ms(lambda: preprocess_bwd_plain(
+                    *inputs, cam, cots, sh_degree=sh_degree), reps=10),
+            }
+        res["times"]["chain_fwd_bwd_ms"] = cuda_ms(chain_fwd_bwd, reps=10)
+        log(f"     times (ms; bound from the bytes at 3.35 TB/s): {json.dumps(res['times'])}")
+    return res
+
+
+def projection_kernels(ns, dev) -> dict:
+    """Phase 12: the projection kernels on phase 2's inputs (the gs_mesh
+    teacher at train view 0, the gs path's first step in its 400,000 rows,
+    the gs_flame first step), the gs_mesh input again at the other SH
+    degrees (PROJECT_SH_SWEEP; degree 4 with seeded coefficients past the
+    bag's 16), then their launches per path: apps.render of
+    the gs_mesh model and PROJECT_STEPS steps of each training path through
+    `make_train_step`, under the port's tracer (`project_kernel` 1 a render
+    or step, and the host syncs a step beside it). Returns the phase's
+    numbers."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.models import vanilla
+    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.train import (
+        make_train_state, make_train_step, optimization_config)
+    from gaussian_mesh_splatting_tpu_torch.utils.profiling import Recording, tracing
+
+    white = torch.ones(3, device=dev)
+    cam0, gt0 = ns.scene.train_cameras[0]
+    gt0 = torch.as_tensor(gt0, device=dev)
+    flame_cam, flame_gt = ns.flame_scene.train_cameras[0]
+    out = {"cases": {
+        "gs_mesh": check_projection("gs_mesh teacher 800x800", ns.bag, cam0, gt0, white, dev,
+                                    True),
+        "gs": check_projection(f"gs first step 800x800 ({GS_POINTS} alive)", ns.gs_bag, cam0,
+                               gt0, white, dev, True),
+        "gs_flame": check_projection("gs_flame first step 800x800", ns.flame_bag, flame_cam,
+                                     torch.as_tensor(flame_gt, device=dev), white, dev, True),
+    }}
+    n = ns.bag.num_gaussians
+    gen = torch.Generator().manual_seed(4)
+    higher = (torch.randn(n, 25 - ns.bag.shs.shape[2], 3, generator=gen) * 0.1).to(dev)
+    shs4 = torch.cat([ns.bag.shs.transpose(1, 2), higher], dim=1).transpose(1, 2)
+    for degree in PROJECT_SH_SWEEP:
+        out["cases"][f"gs_mesh_sh{degree}"] = check_projection(
+            "gs_mesh teacher 800x800", ns.bag, cam0, gt0, white, dev, False, sh_degree=degree,
+            shs=shs4 if degree > SH_DEGREE else None)
+
+    def launches():
+        return {"project_fwd": rc.project_fwd_cuda.launches,
+                "project_bwd": rc.project_bwd_cuda.launches,
+                "composite_fwd": rc.composite_fwd_cuda.launches,
+                "composite_bwd": rc.composite_bwd_cuda.launches}
+
+    def zero_launches():
+        for fn in (rc.project_fwd_cuda, rc.project_bwd_cuda, rc.composite_fwd_cuda,
+                   rc.composite_bwd_cuda):
+            fn.launches = 0
+
+    paths = {}
+    zero_launches()
+    render_app.main(["-m", ns.model_dir])
+    torch.cuda.synchronize()
+    n_views = N_TRAIN + N_TEST
+    paths["render"] = {"views": n_views, **launches()}
+    if paths["render"]["project_fwd"] != n_views or paths["render"]["project_bwd"] != 0:
+        raise SystemExit(f"apps.render launched the projection kernels {paths['render']}")
+    for gs_type, scene, model, model_state in (
+            ("gs_mesh", ns.scene, mesh_model, ns.scene.init_model_state(mesh_model, SH_DEGREE)),
+            ("gs", ns.gs_scene, vanilla,
+             ns.gs_scene.init_model_state(vanilla, SH_DEGREE, capacity=GS_CAPACITY)),
+            ("gs_flame", ns.flame_scene, ns.flame_model,
+             ns.flame_scene.init_model_state(ns.flame_model, SH_DEGREE))):
+        state = make_train_state(model_state, optimization_config(gs_type), scene.cameras_extent)
+        step = make_train_step(model, optimization_config(gs_type), SH_DEGREE)
+        rec = Recording(dev)
+        zero_launches()
+        with tracing(rec):
+            for i in range(PROJECT_STEPS):
+                cam, gt = scene.train_cameras[i % len(scene.train_cameras)]
+                state, _ = step(state, cam, torch.as_tensor(gt, device=dev), white)
+        torch.cuda.synchronize()
+        totals = rec.totals()
+        paths[f"{gs_type}_train"] = {
+            "steps": PROJECT_STEPS, **launches(),
+            "project_kernel_per_step": totals.get("project_kernel", 0) / PROJECT_STEPS,
+            "host_syncs_per_step": totals.get("host_syncs", 0) / PROJECT_STEPS}
+        got = paths[f"{gs_type}_train"]
+        if (got["project_fwd"], got["project_bwd"], got["project_kernel_per_step"]) != (
+                PROJECT_STEPS, PROJECT_STEPS, 1.0):
+            raise SystemExit(f"{gs_type} steps launched the projection kernels {got}")
+        del state
+    out["paths"] = paths
+    log(f"[12] launches per path: {json.dumps(paths)}")
+    return out
+
+
+def projection_line(phase12: dict) -> list:
+    """The kernels line's entries of the projection kernels (phase 12): their
+    launches per path, the forward's differing bits and the VJP's largest
+    error against the chain, and per input the times beside the bound and
+    the chain's."""
+    entries = []
+    for name, key, chain in (("project_fwd", "fwd", "chain_fwd_ms"),
+                             ("project_bwd", "bwd", "chain_fwd_bwd_ms")):
+        cases = phase12["cases"]
+        timed = {case: c for case, c in cases.items() if "times" in c}
+        if key == "fwd":
+            quality = {"max_bits_differing": max(
+                v for c in cases.values() for m in c["fwd_mismatches"].values()
+                for v in m.values())}
+        else:
+            quality = {f"max_rel_err_{k}": max(
+                e[field] for c in cases.values() for m in c[key2].values() for e in m.values())
+                for k, key2, field in (("loss_vs_plain", "vjp_loss", "vs_plain"),
+                                       ("seeded_vs_plain", "vjp_seeded", "vs_plain"),
+                                       ("loss", "vjp_loss", "kernel"),
+                                       ("seeded", "vjp_seeded", "kernel"),
+                                       ("seeded_vs_f64", "vjp_seeded", "kernel_vs_f64"),
+                                       ("seeded_autograd_vs_f64", "vjp_seeded",
+                                        "autograd_vs_f64"))}
+            quality["max_rows_past_autograd"] = max(
+                e["rows_past_autograd"] for c in cases.values()
+                for key2 in ("vjp_loss", "vjp_seeded") for m in c[key2].values()
+                for e in m.values())
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "gaussian_mesh_splatting_tpu_torch/csrc/preprocess.cu",
+            "replaces": None,  # XLA fuses the JAX package's preprocess: no TPU kernel
+            **{f"launches_{path}": v[name] for path, v in phase12["paths"].items()},
+            **quality,
+            **{f"{case}_{k}": c["times"][k2] for case, c in timed.items()
+               for k, k2 in (("ms", f"{key}_ms"), ("queued_ms", f"{key}_queued_ms"),
+                             ("bound_ms", f"{key}_bound_ms"), ("chain_ms", chain))},
+        })
+    return entries
+
+
 def bf16_line_keys(phase11: dict, kernel: str) -> dict:
     """A kernel's bf16 keys of the kernels line (phase 11): per input (no
     prefix: gs_mesh; "gs_", "flame_") the times on both tables in turns, the
@@ -2883,7 +3225,7 @@ def main() -> int:
 
     # ---- 1. build (one nvcc per source, started together) --------------------
     t0 = time.perf_counter()
-    kernel_names = ("composite_fwd", "composite_bwd")
+    kernel_names = ("composite_fwd", "composite_bwd", "preprocess")
     with concurrent.futures.ThreadPoolExecutor(len(kernel_names)) as pool:
         builds = dict(zip(kernel_names, pool.map(cuda_build.build, kernel_names)))
     for name, (path, build_s, build_log) in builds.items():
@@ -3439,7 +3781,13 @@ def main() -> int:
     log(f"    phase 11: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 12. output lines ---------------------------------------------------
+    # ---- 12. the projection kernels ------------------------------------------
+    t0 = time.perf_counter()
+    phase12 = projection_kernels(ns, dev)
+    log(f"    phase 12: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 13. output lines ---------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -3513,7 +3861,7 @@ def main() -> int:
                                                                    ("flame_", "flame"))
            for k, v in (("cuda_ms", "bwd_ms_cuda"), ("tight_ms", "bwd_ms_tight"))},
         **bf16_line_keys(phase11, "bwd"),
-    }]}
+    }, *projection_line(phase12)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,10 @@ Port of `preprocess` / `sh_colors` from
     and the per-axis binning half-extents of the chosen `radius_mode`.
 The arithmetic is written per coordinate, in the JAX package's order, so
 that the two agree to float32 rounding.
+
+On CUDA tensors `ops/rasterize_cuda` runs the same function as one kernel
+and its VJP as another (csrc/preprocess.cu). `preprocess_bwd_plain` is that
+VJP in plain torch, line for line as the kernel computes it.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ..core.transforms import quat_to_rotmat
 
 NEAR_CULL_Z = 0.2  # the CUDA in_frustum near clip
 DILATION = 0.3  # px^2 added to the 2D covariance diagonal
+FRUSTUM_CLAMP = 1.3  # view-space x/z and y/z clamped to this many frustum tangents
 
 
 class ProjectedGaussians(NamedTuple):
@@ -79,6 +84,19 @@ def ewa_cov2d(p_view: torch.Tensor, cov3d: torch.Tensor, cam: Camera
     return torch.stack([a, b, c], dim=-1), det_ratio
 
 
+def _quad(u, v, cov6):
+    """u^T Sigma v with the symmetric Sigma in 6-entry form."""
+    c00, c01, c02, c11, c12, c22 = cov6
+    return (
+        u[0] * v[0] * c00
+        + (u[0] * v[1] + u[1] * v[0]) * c01
+        + (u[0] * v[2] + u[2] * v[0]) * c02
+        + u[1] * v[1] * c11
+        + (u[1] * v[2] + u[2] * v[1]) * c12
+        + u[2] * v[2] * c22
+    )
+
+
 def _ewa_cov2d_cols(pv, cov6, cam: Camera):
     """Columnar EWA: pv = (tx, ty, tz) (N,) each; cov6 = the 6 unique 3D
     covariance entries (c00, c01, c02, c11, c12, c22). Returns
@@ -86,8 +104,8 @@ def _ewa_cov2d_cols(pv, cov6, cam: Camera):
     fx, fy = cam.focal_x, cam.focal_y
     tx, ty, tz = pv
     tz = torch.where(torch.abs(tz) < 1e-6, 1e-6, tz)
-    limx = 1.3 * cam.tanfovx
-    limy = 1.3 * cam.tanfovy
+    limx = FRUSTUM_CLAMP * cam.tanfovx
+    limy = FRUSTUM_CLAMP * cam.tanfovy
     tx = torch.minimum(torch.maximum(tx / tz, -limx), limx) * tz
     ty = torch.minimum(torch.maximum(ty / tz, -limy), limy) * tz
 
@@ -102,22 +120,9 @@ def _ewa_cov2d_cols(pv, cov6, cam: Camera):
     t0 = [j00 * Wv[0, k] + j02 * Wv[2, k] for k in range(3)]
     t1 = [j11 * Wv[1, k] + j12 * Wv[2, k] for k in range(3)]
 
-    c00, c01, c02, c11, c12, c22 = cov6
-
-    def quad(u, v):
-        # u^T Sigma v with symmetric Sigma in 6-entry form
-        return (
-            u[0] * v[0] * c00
-            + (u[0] * v[1] + u[1] * v[0]) * c01
-            + (u[0] * v[2] + u[2] * v[0]) * c02
-            + u[1] * v[1] * c11
-            + (u[1] * v[2] + u[2] * v[1]) * c12
-            + u[2] * v[2] * c22
-        )
-
-    a = quad(t0, t0)
-    b = quad(t0, t1)
-    c = quad(t1, t1)
+    a = _quad(t0, t0, cov6)
+    b = _quad(t0, t1, cov6)
+    c = _quad(t1, t1, cov6)
     det_raw = a * c - b * b
     a_d = a + DILATION
     c_d = c + DILATION
@@ -126,10 +131,10 @@ def _ewa_cov2d_cols(pv, cov6, cam: Camera):
     return a_d, b, c_d, det_ratio
 
 
-def _eval_sh_cols(deg: int, sh_t: torch.Tensor, x, y, z):
-    """Columnar SH evaluation: sh_t (K, C, N) transposed coefficients,
-    x/y/z (N,) unit direction components. Returns a C-list of (N,) values.
-    Same basis and constants as `core.sh.eval_sh`."""
+def _sh_basis(deg: int, x, y, z) -> list:
+    """The SH basis functions (degree <= 4) at unit directions x/y/z (N,)
+    each: a list of (deg + 1)^2 (N,) values. Same basis and constants as
+    `core.sh.eval_sh`."""
     basis = [torch.ones_like(x) * C0]
     if deg > 0:
         basis += [-C1 * y, C1 * z, -C1 * x]
@@ -162,6 +167,13 @@ def _eval_sh_cols(deg: int, sh_t: torch.Tensor, x, y, z):
                         C4[7] * xz * (xx - 3 * yy),
                         C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
                     ]
+    return basis
+
+
+def _eval_sh_cols(deg: int, sh_t: torch.Tensor, x, y, z):
+    """Columnar SH evaluation: sh_t (K, C, N) transposed coefficients,
+    x/y/z (N,) unit direction components. Returns a C-list of (N,) values."""
+    basis = _sh_basis(deg, x, y, z)
     out = []
     for ch in range(sh_t.shape[1]):
         acc = basis[0] * sh_t[0, ch]
@@ -329,3 +341,256 @@ def preprocess(
         radius_x=rx,
         radius_y=ry,
     )
+
+
+def _max_grad(g, a, b):
+    """torch.maximum(a, b)'s gradient to `a`: g where a > b, half at a tie."""
+    return torch.where(a < b, 0.0, torch.where(a == b, g * 0.5, g))
+
+
+def _min_grad(g, a, b):
+    """torch.minimum(a, b)'s gradient to `a`: g where a < b, half at a tie."""
+    return torch.where(a > b, 0.0, torch.where(a == b, g * 0.5, g))
+
+
+def _sh_slopes(deg: int, x, y, z) -> list:
+    """The partial derivatives (d/dx, d/dy, d/dz) of each SH basis function
+    of `_sh_basis` (degree <= 4) at unit directions x/y/z."""
+    zero = 0.0
+    slopes = [(zero, zero, zero)]
+    if deg > 0:
+        slopes += [(zero, -C1, zero), (zero, zero, C1), (-C1, zero, zero)]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            slopes += [
+                (C2[0] * y, C2[0] * x, zero),
+                (zero, C2[1] * z, C2[1] * y),
+                (-2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+                (C2[3] * z, zero, C2[3] * x),
+                (2.0 * C2[4] * x, -2.0 * C2[4] * y, zero),
+            ]
+            if deg > 2:
+                slopes += [
+                    (C3[0] * 6.0 * xy, C3[0] * (3.0 * xx - 3.0 * yy), zero),
+                    (C3[1] * yz, C3[1] * xz, C3[1] * xy),
+                    (C3[2] * -2.0 * xy, C3[2] * (4.0 * zz - xx - 3.0 * yy), C3[2] * 8.0 * yz),
+                    (C3[3] * -6.0 * xz, C3[3] * -6.0 * yz,
+                     C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy)),
+                    (C3[4] * (4.0 * zz - 3.0 * xx - yy), C3[4] * -2.0 * xy, C3[4] * 8.0 * xz),
+                    (C3[5] * 2.0 * xz, C3[5] * -2.0 * yz, C3[5] * (xx - yy)),
+                    (C3[6] * (3.0 * xx - 3.0 * yy), C3[6] * -6.0 * xy, zero),
+                ]
+                if deg > 3:
+                    slopes += [
+                        (C4[0] * y * (3.0 * xx - yy), C4[0] * x * (xx - 3.0 * yy), zero),
+                        (C4[1] * 6.0 * xy * z, C4[1] * 3.0 * z * (xx - yy),
+                         C4[1] * y * (3.0 * xx - yy)),
+                        (C4[2] * y * (7.0 * zz - 1.0), C4[2] * x * (7.0 * zz - 1.0),
+                         C4[2] * 14.0 * xy * z),
+                        (zero, C4[3] * z * (7.0 * zz - 3.0), C4[3] * y * (21.0 * zz - 3.0)),
+                        (zero, zero, C4[4] * z * (140.0 * zz - 60.0)),
+                        (C4[5] * z * (7.0 * zz - 3.0), zero, C4[5] * x * (21.0 * zz - 3.0)),
+                        (C4[6] * 2.0 * x * (7.0 * zz - 1.0), C4[6] * -2.0 * y * (7.0 * zz - 1.0),
+                         C4[6] * 14.0 * z * (xx - yy)),
+                        (C4[7] * 3.0 * z * (xx - yy), C4[7] * -6.0 * xy * z,
+                         C4[7] * x * (xx - 3.0 * yy)),
+                        (C4[8] * 4.0 * x * (xx - 3.0 * yy), C4[8] * 4.0 * y * (yy - 3.0 * xx),
+                         zero),
+                    ]
+    return slopes
+
+
+def preprocess_bwd_plain(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    cam: Camera,
+    grads: tuple,
+    *,
+    sh_degree: int,
+    scale_modifier=1.0,
+    antialiasing: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The VJP of `preprocess` with `shs` (degree <= 4), neither `colors` nor
+    `cov3d_precomp`: plain torch, line for line as the backward kernel
+    (csrc/preprocess.cu, `project_bwd_kernel`) computes it. It recomputes
+    the forward's intermediates from the inputs and takes the cotangents
+    `grads` = (mean2d (N, 2), depth (N,), conic (N, 3), opacity (N,),
+    color (N, 3)) of the differentiable outputs. The gradient of
+    `mean2d_offset` is the mean2d cotangent itself; `alive` and
+    `radius_mode` move no gradient (the radii pass through ceil).
+
+    Ties follow autograd: torch.maximum / torch.minimum split the gradient
+    in half, torch.where passes none to the branch it did not take.
+    Returns the gradients of (means3d, scales, rotations, opacities, shs),
+    each shaped as its input; shs's coefficients above the degree get 0."""
+    g_mean2d, g_depth, g_conic, g_opacity, g_color = grads
+    mx, my, mz = means3d.unbind(-1)
+    Wv, FP = cam.world_view, cam.full_proj
+    fx, fy = cam.focal_x, cam.focal_y
+    limx, limy = FRUSTUM_CLAMP * cam.tanfovx, FRUSTUM_CLAMP * cam.tanfovy
+
+    def apply_row(M, i):
+        return M[i, 0] * mx + M[i, 1] * my + M[i, 2] * mz + M[i, 3]
+
+    # ---- the forward's intermediates --------------------------------------
+    tx_v, ty_v, tz = apply_row(Wv, 0), apply_row(Wv, 1), apply_row(Wv, 2)
+    nx, ny = apply_row(FP, 0), apply_row(FP, 1)
+    inv_w = 1.0 / (apply_row(FP, 3) + 1e-7)
+
+    q = rotations.unbind(-1)
+    qnorm = torch.sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3])
+    inv_qn = 1.0 / qnorm
+    qr, qx, qy, qz = (c * inv_qn for c in q)
+    R = ((1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qr * qz), 2 * (qx * qz + qr * qy)),
+         (2 * (qx * qy + qr * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qr * qx)),
+         (2 * (qx * qz - qr * qy), 2 * (qy * qz + qr * qx), 1 - 2 * (qx * qx + qy * qy)))
+    s = [c * scale_modifier for c in scales.unbind(-1)]
+    sq = [c * c for c in s]
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))  # cov6's entries
+    cov6 = [R[i][0] * R[j][0] * sq[0] + R[i][1] * R[j][1] * sq[1] + R[i][2] * R[j][2] * sq[2]
+            for i, j in pairs]
+
+    tz_small = torch.abs(tz) < 1e-6
+    tzs = torch.where(tz_small, 1e-6, tz)
+    ux, uy = tx_v / tzs, ty_v / tzs
+    vx, vy = torch.maximum(ux, -limx), torch.maximum(uy, -limy)
+    uxc, uyc = torch.minimum(vx, limx), torch.minimum(vy, limy)
+    txc, tyc = uxc * tzs, uyc * tzs
+    inv_z = 1.0 / tzs
+    inv_z2 = inv_z * inv_z
+    j00, j02 = fx * inv_z, -fx * txc * inv_z2
+    j11, j12 = fy * inv_z, -fy * tyc * inv_z2
+    t0 = [j00 * Wv[0, k] + j02 * Wv[2, k] for k in range(3)]
+    t1 = [j11 * Wv[1, k] + j12 * Wv[2, k] for k in range(3)]
+    S = [[None] * 3 for _ in range(3)]  # the symmetric 3D covariance
+    for (i, j), c in zip(pairs, cov6):
+        S[i][j] = S[j][i] = c
+    St0 = [S[i][0] * t0[0] + S[i][1] * t0[1] + S[i][2] * t0[2] for i in range(3)]
+    St1 = [S[i][0] * t1[0] + S[i][1] * t1[1] + S[i][2] * t1[2] for i in range(3)]
+    # the forms in the forward's order: the tests at det and its ties see its values
+    a, b, c = _quad(t0, t0, cov6), _quad(t0, t1, cov6), _quad(t1, t1, cov6)
+    a_d, c_d = a + DILATION, c + DILATION
+    det = a_d * c_d - b * b  # det_d of the EWA and det of preprocess alike
+    det_ok = det > 0.0
+    inv_det = 1.0 / torch.where(det_ok, det, 1.0)
+
+    # ---- conic and opacity -------------------------------------------------
+    g_ca, g_cb, g_cc = g_conic.unbind(-1)
+    g_a_d = g_cc * inv_det
+    g_c_d = g_ca * inv_det
+    g_b = -(g_cb * inv_det)
+    g_inv_det = g_ca * c_d + g_cb * -b + g_cc * a_d
+    g_det = torch.where(det_ok, -g_inv_det * (inv_det * inv_det), 0.0)
+    g_a_d = g_a_d + g_det * c_d
+    g_c_d = g_c_d + g_det * a_d
+    g_b = g_b - 2.0 * b * g_det
+    opac = opacities.reshape(-1)
+    g_a, g_c = g_a_d, g_c_d
+    if antialiasing:
+        # opac * sqrt(max(det_raw / det_d, 0)), det_d == 0 read as 1
+        det_raw = a * c - b * b
+        det_dd = torch.where(det == 0, 1.0, det)
+        ratio = det_raw / det_dd
+        root = torch.sqrt(torch.maximum(ratio, ratio.new_zeros(())))
+        g_op = g_opacity * root
+        g_root = g_opacity * opac
+        g_ratio = _max_grad(g_root / (2.0 * root), ratio, 0.0)
+        g_raw = g_ratio / det_dd
+        g_det_d = torch.where(det == 0, 0.0, -g_ratio * ((det_raw / det_dd) / det_dd))
+        g_a = g_a + g_raw * c + g_det_d * c_d
+        g_c = g_c + g_raw * a + g_det_d * a_d
+        g_b = g_b - 2.0 * b * g_raw - 2.0 * b * g_det_d
+    else:
+        g_op = g_opacity
+
+    # ---- the EWA quadratic forms: a = t0 S t0, b = t0 S t1, c = t1 S t1 -----
+    g_t0 = [2.0 * g_a * St0[k] + g_b * St1[k] for k in range(3)]
+    g_t1 = [g_b * St0[k] + 2.0 * g_c * St1[k] for k in range(3)]
+    g_cov6 = []
+    for i, j in pairs:
+        f = 1.0 if i == j else 2.0  # an off-diagonal entry stands for two
+        cross = t0[i] * t1[j] if i == j else t0[i] * t1[j] + t0[j] * t1[i]
+        g_cov6.append(f * g_a * t0[i] * t0[j] + g_b * cross + f * g_c * t1[i] * t1[j])
+    # ---- the Jacobian and the frustum clamp ---------------------------------
+    g_j00 = g_t0[0] * Wv[0, 0] + g_t0[1] * Wv[0, 1] + g_t0[2] * Wv[0, 2]
+    g_j02 = g_t0[0] * Wv[2, 0] + g_t0[1] * Wv[2, 1] + g_t0[2] * Wv[2, 2]
+    g_j11 = g_t1[0] * Wv[1, 0] + g_t1[1] * Wv[1, 1] + g_t1[2] * Wv[1, 2]
+    g_j12 = g_t1[0] * Wv[2, 0] + g_t1[1] * Wv[2, 1] + g_t1[2] * Wv[2, 2]
+    g_inv_z2 = g_j02 * (-fx * txc) + g_j12 * (-fy * tyc)
+    g_inv_z = g_j00 * fx + g_j11 * fy + 2.0 * inv_z * g_inv_z2
+    g_txc = g_j02 * -fx * inv_z2
+    g_tyc = g_j12 * -fy * inv_z2
+    g_tzs = -g_inv_z * (inv_z * inv_z) + g_txc * uxc + g_tyc * uyc
+    g_ux = _max_grad(_min_grad(g_txc * tzs, vx, limx), ux, -limx)
+    g_uy = _max_grad(_min_grad(g_tyc * tzs, vy, limy), uy, -limy)
+    g_tx_v = g_ux / tzs
+    g_ty_v = g_uy / tzs
+    g_tzs = g_tzs - g_ux * (ux / tzs) - g_uy * (uy / tzs)
+    g_tz = g_depth + torch.where(tz_small, 0.0, g_tzs)
+
+    # ---- the 3D covariance: cov6[i, j] = sum_k R_ik R_jk sq_k ----------------
+    G = [[None] * 3 for _ in range(3)]  # symmetric: 2 g on the diagonal, g off it
+    for (i, j), g in zip(pairs, g_cov6):
+        if i == j:
+            G[i][i] = 2.0 * g
+        else:
+            G[i][j] = G[j][i] = g
+    g_R = [[(G[i][0] * R[0][k] + G[i][1] * R[1][k] + G[i][2] * R[2][k]) * sq[k]
+            for k in range(3)] for i in range(3)]
+    g_sq = [sum(g * R[i][k] * R[j][k] for (i, j), g in zip(pairs, g_cov6)) for k in range(3)]
+    g_scales = torch.stack([2.0 * s[k] * g_sq[k] * scale_modifier for k in range(3)], dim=-1)
+    (g00, g01, g02), (g10, g11, g12), (g20, g21, g22) = g_R
+    g_qn = (
+        2.0 * (-g01 * qz + g02 * qy + g10 * qz - g12 * qx - g20 * qy + g21 * qx),
+        2.0 * (g01 * qy + g02 * qz + g10 * qy - g12 * qr + g20 * qz + g21 * qr)
+        - 4.0 * qx * (g11 + g22),
+        2.0 * (g01 * qx + g02 * qr + g10 * qx + g12 * qz - g20 * qr + g21 * qz)
+        - 4.0 * qy * (g00 + g22),
+        2.0 * (-g01 * qr + g02 * qx + g10 * qr + g12 * qy + g20 * qx + g21 * qy)
+        - 4.0 * qz * (g00 + g11),
+    )
+    g_inv_qn = g_qn[0] * q[0] + g_qn[1] * q[1] + g_qn[2] * q[2] + g_qn[3] * q[3]
+    g_sumsq = (-g_inv_qn * (inv_qn * inv_qn)) / (2.0 * qnorm)
+    g_rotations = torch.stack([g_qn[k] * inv_qn + 2.0 * q[k] * g_sumsq for k in range(4)],
+                              dim=-1)
+
+    # ---- colour from SH -----------------------------------------------------
+    cc = cam.cam_center
+    d = (mx - cc[0], my - cc[1], mz - cc[2])
+    dnorm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    inv_n = 1.0 / (dnorm + 1e-12)
+    direction = (d[0] * inv_n, d[1] * inv_n, d[2] * inv_n)
+    basis, slopes = _sh_basis(sh_degree, *direction), _sh_slopes(sh_degree, *direction)
+    coeff = len(basis)
+    g_shs = torch.zeros_like(shs)
+    g_rgb = []
+    for ch in range(3):
+        acc = basis[0] * shs[:, ch, 0]
+        for k in range(1, coeff):
+            acc = acc + basis[k] * shs[:, ch, k]
+        g = _max_grad(g_color[:, ch], acc + 0.5, 0.0)
+        g_rgb.append(g)
+        for k in range(coeff):
+            g_shs[:, ch, k] = g * basis[k]
+    g_dir = [0.0, 0.0, 0.0]
+    for k in range(1, coeff):
+        g_bk = g_rgb[0] * shs[:, 0, k] + g_rgb[1] * shs[:, 1, k] + g_rgb[2] * shs[:, 2, k]
+        g_dir = [g_dir[i] + g_bk * slopes[k][i] for i in range(3)]
+    g_inv_n = g_dir[0] * d[0] + g_dir[1] * d[1] + g_dir[2] * d[2]
+    g_dsq = (-g_inv_n * (inv_n * inv_n)) / (2.0 * dnorm)
+    g_d = [g_dir[i] * inv_n + 2.0 * d[i] * g_dsq for i in range(3)]
+
+    # ---- the projection: mean2d = ndc_to_pixel(FP[:2] m / (FP[3] m + 1e-7)) --
+    g_nx = g_mean2d[:, 0] * 0.5 * cam.width
+    g_ny = g_mean2d[:, 1] * 0.5 * cam.height
+    g_w = -(g_nx * nx + g_ny * ny) * (inv_w * inv_w)
+    g_nx, g_ny = g_nx * inv_w, g_ny * inv_w
+    g_means3d = torch.stack([
+        g_tx_v * Wv[0, k] + g_ty_v * Wv[1, k] + g_tz * Wv[2, k]
+        + g_nx * FP[0, k] + g_ny * FP[1, k] + g_w * FP[3, k] + g_d[k]
+        for k in range(3)], dim=-1)
+    return (g_means3d, g_scales, g_rotations, g_op.reshape(opacities.shape), g_shs)

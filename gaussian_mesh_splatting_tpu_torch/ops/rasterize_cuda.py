@@ -1,7 +1,11 @@
 """Tile rasterizer with hand-written CUDA composites: the port's fast path
 (counterpart of `gaussian_mesh_splatting_tpu/ops/rasterize_pallas.py`).
 
-  preprocess (torch)           project / cull / conic / SH, ops/projection.py
+  project (CUDA kernels)       project / cull / conic / SH: forward
+                               csrc/preprocess.cu `project_fwd`, bit-equal to
+                               ops/projection.py `preprocess`; its VJP
+                               `project_bwd` (plain: `preprocess_bwd_plain`);
+                               CPU tensors run `preprocess` itself
   bin_gaussians (torch)        depth-ordered per-tile pair lists, ops/binning.py
   pack_attributes (torch)      the ten per-Gaussian attributes as one (N, 12)
                                float32 table: a row is three 16-byte words
@@ -14,7 +18,9 @@
   background + outputs (torch) image = rgb + T * bg
 
 One `torch.autograd.Function` (`_Composite`) joins the two: its forward is
-the forward kernel and its backward the backward kernel. For CPU tensors the
+the forward kernel and its backward the backward kernel (`_Project` joins the
+projection's two kernels alike, for CUDA tensors only: they take `shs` of
+SH degree <= 4, not `colors` or `cov3d_precomp`). For CPU tensors the
 same Function runs the plain PyTorch versions `composite_fwd_plain` and
 `composite_bwd_plain`, so the CPU tests go through the same autograd wiring
 as the card. It never falls back from one to the other: a CUDA tensor gets
@@ -51,7 +57,7 @@ from ..core.camera import Camera
 from ..utils import profiling
 from . import cuda_build
 from .binning import Binning, bin_gaussians
-from .projection import preprocess
+from .projection import ProjectedGaussians, preprocess
 from .rasterize_reference import ALPHA_MAX, ALPHA_MIN, T_EPS, RenderOutput
 
 TILE = 16  # the kernels' tile edge (one block of TILE*TILE threads per tile)
@@ -577,6 +583,259 @@ def composite(
     )
 
 
+# C interfaces of csrc/preprocess.cu
+# fwd: means3d, scales, rotations, opacities, shs; shs's three strides;
+#      mean2d_offset, alive; the camera's world_view, full_proj, cam_center,
+#      tanfovx, tanfovy; n, sh_degree; scale_modifier; antialiasing, tight,
+#      width, height; mean2d, depth, conic, opacity, color, radius, valid,
+#      radius_x, radius_y; stream
+PROJECT_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
+                        + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p] * 10)
+# bwd: means3d, scales, rotations, opacities, shs; shs's strides; the
+#      camera's five tensors; n, sh_degree; scale_modifier; antialiasing,
+#      width, height; the five cotangents, each (pointer, row stride); the
+#      gradients of means3d, scales, rotations, opacities, shs; the last
+#      one's strides; its coefficients; stream
+PROJECT_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
+                        + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p, ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 5
+                        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+PROJECT_MAX_SH_DEGREE = 4  # the kernels' SH basis
+CAMERA_FIELDS = (("world_view", (4, 4)), ("full_proj", (4, 4)), ("cam_center", (3,)),
+                 ("tanfovx", ()), ("tanfovy", ()))  # the camera's tensors the kernels read
+RADIUS_MODES = ("cuda", "tight")
+
+
+@functools.cache
+def _project_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("preprocess")
+    for entry, argtypes in (("project_fwd", PROJECT_FWD_ARGTYPES),
+                            ("project_bwd", PROJECT_BWD_ARGTYPES)):
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
+
+
+def _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam: Camera,
+                             sh_degree: int, scale_modifier) -> torch.device:
+    """The projection kernels' own inputs: float32 on one CUDA device,
+    contiguous but for `shs` (N, 3, K >= (sh_degree + 1)^2, any strides),
+    SH degree <= 4 and a Python number as `scale_modifier`; raises
+    ValueError otherwise. Returns the device."""
+    dev = means3d.device
+    n = means3d.shape[0]
+    if n * 4 >= 2**31:
+        raise ValueError("the projection kernels index with 32-bit integers")
+    if not 0 <= sh_degree <= PROJECT_MAX_SH_DEGREE:
+        raise ValueError(f"the projection kernels take SH degrees 0 to {PROJECT_MAX_SH_DEGREE}, "
+                         f"got {sh_degree}")
+    if isinstance(scale_modifier, torch.Tensor):
+        raise ValueError("the projection kernels take scale_modifier as a Python number")
+    _check_kernel_inputs({
+        "means3d": (means3d, torch.float32, (n, 3)),
+        "scales": (scales, torch.float32, (n, 3)),
+        "rotations": (rotations, torch.float32, (n, 4)),
+        "opacities": (opacities.reshape(-1), torch.float32, (n,)),
+    }, dev)
+    if not opacities.is_contiguous():
+        raise ValueError("opacities must be contiguous")
+    if shs.device != dev or shs.dtype != torch.float32:
+        raise ValueError(f"shs must be float32 on {dev}, got {shs.dtype} on {shs.device}")
+    if shs.dim() != 3 or shs.shape[:2] != (n, 3) or shs.shape[2] < (sh_degree + 1) ** 2:
+        raise ValueError(f"shs must be ({n}, 3, K >= {(sh_degree + 1) ** 2}), "
+                         f"got {tuple(shs.shape)}")
+    return dev
+
+
+def _camera_tensors(cam: Camera, dev: torch.device) -> list[torch.Tensor]:
+    """The camera's tensors the kernels read (CAMERA_FIELDS), float32 on
+    `dev`, made contiguous (the viewer's matrices arrive transposed)."""
+    tensors = [getattr(cam, f).contiguous() for f, _ in CAMERA_FIELDS]
+    _check_kernel_inputs({f"camera {f}": (t, torch.float32, shape)
+                          for (f, shape), t in zip(CAMERA_FIELDS, tensors)}, dev)
+    return tensors
+
+
+def project_fwd_cuda(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    cam: Camera,
+    *,
+    sh_degree: int,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+    radius_mode: str = "tight",
+    mean2d_offset: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+) -> ProjectedGaussians:
+    """Launch the projection kernel (csrc/preprocess.cu `project_fwd`) on
+    PyTorch's current stream: `preprocess` of these inputs with `shs` (read
+    at its own strides) through `cam` (its tensors read on the device),
+    every output bit-equal. Counts its launches in
+    `project_fwd_cuda.launches`."""
+    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
+                                   scale_modifier)
+    n = means3d.shape[0]
+    extra = {}
+    if mean2d_offset is not None:
+        extra["mean2d_offset"] = (mean2d_offset, torch.float32, (n, 2))
+    if alive is not None:
+        extra["alive"] = (alive, torch.bool, (n,))
+    _check_kernel_inputs(extra, dev)
+    if radius_mode not in RADIUS_MODES:
+        raise ValueError(f"unknown radius_mode {radius_mode!r}")
+    camera = _camera_tensors(cam, dev)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = ProjectedGaussians(
+        mean2d=empty(n, 2), depth=empty(n), conic=empty(n, 3), opacity=empty(n),
+        color=empty(n, 3), radius=empty(n), valid=empty(n, dtype=torch.bool),
+        radius_x=empty(n), radius_y=empty(n))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _project_lib().project_fwd(
+            means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+            shs.data_ptr(), *shs.stride(),
+            None if mean2d_offset is None else mean2d_offset.data_ptr(),
+            None if alive is None else alive.data_ptr(),
+            *(t.data_ptr() for t in camera), n, sh_degree, float(scale_modifier), int(antialiasing), int(radius_mode == "tight"),
+            cam.width, cam.height, *(t.data_ptr() for t in out), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"project_fwd kernel launch failed: CUDA error {err}")
+    project_fwd_cuda.launches += 1
+    return out
+
+
+project_fwd_cuda.launches = 0
+
+
+def _cotangent_rows(g: torch.Tensor | None, n: int, cols: int, name: str,
+                    dev: torch.device) -> tuple[torch.Tensor | None, int]:
+    """(a cotangent whose columns are adjacent, its row stride): None stays
+    None (the kernel reads zeros); a view of a wider table (the composite's
+    gradient rows) is read in place; other layouts are copied."""
+    if g is None:
+        return None, 0
+    shape = (n, cols) if cols > 1 else (n,)
+    if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape:
+        raise ValueError(f"the {name} cotangent must be float32 {shape} on {dev}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if cols > 1 and g.stride(1) != 1:
+        g = g.contiguous()
+    return g, g.stride(0)
+
+
+def project_bwd_cuda(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    cam: Camera,
+    grads: tuple,
+    *,
+    sh_degree: int,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Launch the projection's VJP kernel (csrc/preprocess.cu `project_bwd`)
+    on PyTorch's current stream. Same contract as `preprocess_bwd_plain`; a
+    cotangent may be None (zeros) or a strided view. The shs gradient has
+    the layout of `shs`. Counts its launches in
+    `project_bwd_cuda.launches`."""
+    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
+                                   scale_modifier)
+    n = means3d.shape[0]
+    cots = [_cotangent_rows(g, n, cols, name, dev) for g, cols, name in
+            zip(grads, (2, 1, 3, 1, 3), ("mean2d", "depth", "conic", "opacity", "color"))]
+    camera = _camera_tensors(cam, dev)
+    out = (torch.empty_like(means3d), torch.empty_like(scales), torch.empty_like(rotations),
+           torch.empty_like(opacities), torch.empty_like(shs))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _project_lib().project_bwd(
+            means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+            shs.data_ptr(), *shs.stride(), *(t.data_ptr() for t in camera), n, sh_degree, float(scale_modifier), int(antialiasing), cam.width, cam.height,
+            *(v for g, stride in cots for v in (None if g is None else g.data_ptr(), stride)),
+            *(t.data_ptr() for t in out), *out[4].stride(), shs.shape[2], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"project_bwd kernel launch failed: CUDA error {err}")
+    project_bwd_cuda.launches += 1
+    return out
+
+
+project_bwd_cuda.launches = 0
+
+
+class _Project(torch.autograd.Function):
+    """Projection with SH behind autograd (CUDA tensors): the forward kernel,
+    then the VJP kernel. The radii and `valid` are not differentiable; the
+    gradient of `mean2d_offset` is the mean2d cotangent."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, opacities, shs, mean2d_offset, alive, cam,
+                sh_degree, scale_modifier, antialiasing, radius_mode):
+        settings = dict(sh_degree=sh_degree, scale_modifier=scale_modifier,
+                        antialiasing=antialiasing)
+        proj = project_fwd_cuda(means3d, scales, rotations, opacities, shs, cam,
+                                radius_mode=radius_mode, mean2d_offset=mean2d_offset,
+                                alive=alive, **settings)
+        ctx.save_for_backward(means3d, scales, rotations, opacities, shs)
+        ctx.cam = cam
+        ctx.settings = settings
+        ctx.has_offset = mean2d_offset is not None
+        ctx.mark_non_differentiable(proj.radius, proj.valid, proj.radius_x, proj.radius_y)
+        ctx.set_materialize_grads(False)  # a missing cotangent reads as zeros in the kernel
+        return tuple(proj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mean2d, g_depth, g_conic, g_opacity, g_color, *_non_differentiable):
+        grads = project_bwd_cuda(*ctx.saved_tensors, ctx.cam,
+                                 (g_mean2d, g_depth, g_conic, g_opacity, g_color), **ctx.settings)
+        g_offset = g_mean2d if ctx.has_offset else None
+        return (*grads, g_offset, *[None] * 6)
+
+
+def project(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    cam: Camera,
+    *,
+    shs: torch.Tensor | None,
+    colors: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+    sh_degree: int = 0,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+    mean2d_offset: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+    radius_mode: str = "tight",
+) -> ProjectedGaussians:
+    """`preprocess` of CUDA float32 tensors through the projection kernels,
+    differentiable: the same outputs, bit-equal. They take `shs` of SH
+    degree <= 4 and a Python number as `scale_modifier`; any other call
+    (`colors`, `cov3d_precomp`, another dtype) raises ValueError."""
+    if shs is None or colors is not None or cov3d_precomp is not None:
+        raise ValueError("the projection kernels take `shs`, not `colors` or `cov3d_precomp` "
+                         "(those run through `preprocess` on CPU tensors)")
+    return ProjectedGaussians(*_Project.apply(
+        means3d.contiguous(), scales.contiguous(), rotations.contiguous(),
+        opacities.contiguous(), shs, mean2d_offset, alive, cam, sh_degree, scale_modifier,
+        antialiasing, radius_mode))
+
+
 def rasterize_cuda(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -600,7 +859,11 @@ def rasterize_cuda(
     row_band: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Fast equivalent of `rasterize_reference` (same contract) at 16x16
-    tiles, differentiable through the composite kernels. `radius_mode`
+    tiles, differentiable through the composite kernels and, on CUDA
+    tensors, the projection kernels (`project`: `shs` only, SH degree <= 4;
+    a call with `colors` or `cov3d_precomp` raises ValueError there). The
+    `project` span counts `project_kernel` 1 for the kernels, 0 where CPU
+    tensors run `preprocess`. `radius_mode`
     ("tight" or "cuda", see `preprocess`) picks the binning rectangles; an
     unknown mode raises ValueError. `attr_precision` and `grad_precision`
     ("f32", the exact default, or "bf16": the JAX rasterizer's pair-table
@@ -611,13 +874,14 @@ def rasterize_cuda(
     min(hi * TILE, H)), each equal to the same rows of the whole render (the
     kernels walk nothing outside the band)."""
     with profiling.span("project"):
-        proj = preprocess(
+        proj = (project if means3d.is_cuda else preprocess)(
             means3d, scales, rotations, opacities, cam,
             shs=shs, colors=colors, sh_degree=sh_degree,
             scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
             antialiasing=antialiasing, mean2d_offset=mean2d_offset, alive=alive,
             radius_mode=radius_mode,
         )
+        profiling.count("project_kernel", int(means3d.is_cuda))
     h, w = cam.height, cam.width
     n_ty, n_tx = _tile_grid(h, w)
     with profiling.span("bin"):

@@ -18,8 +18,10 @@ Spans of the program: the train step's stages `to_bag`, `render`, `loss`,
 `project` (cov3d, projection and SH), `bin`, its child `bin_sync` (the wait
 for the pair count) and `composite_fwd` (the attribute table and B1) in
 `ops/rasterize_cuda.py` and `ops/binning.py`; `composite_bwd` (B2) in the
-composite's backward. Counters: `pairs` (a render's pair-list length) and
-`host_syncs` (each place the host blocks on the device)."""
+composite's backward. Counters: `pairs` (a render's pair-list length),
+`host_syncs` (each place the host blocks on the device) and
+`project_kernel` (1 a render whose projection ran as the CUDA kernels, 0
+where `preprocess` ran)."""
 from __future__ import annotations
 
 import contextlib

@@ -10,7 +10,7 @@ import pytest
 import tools_torch_span_split as tool
 
 TRAIN_SPLIT = {"project_ms", "bin_ms", "bin_sync_ms", "bwd_loss_ms", "bwd_composite_ms",
-               "bwd_geometry_ms", "pairs", "host_syncs"}
+               "bwd_geometry_ms", "pairs", "host_syncs", "project_kernel"}
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +35,8 @@ def test_train_split(lines):
     split = d["split"]
     assert set(split) == TRAIN_SPLIT
     assert split["host_syncs"] == 3 and split["pairs"] > 0
-    assert all(split[k] > 0 for k in TRAIN_SPLIT - {"pairs", "host_syncs"})
+    assert all(split[k] > 0 for k in TRAIN_SPLIT - {"pairs", "host_syncs", "project_kernel"})
+    assert split["project_kernel"] == 0  # CPU tensors: `preprocess`
     assert set(d["ms_per_step"]) == {"plain", "marks", "traced"}
     assert set(d["stage_ms"]) == {"to_bag", "render", "loss", "backward", "adam", "stats"}
     nested = d["profiled"]["nested_idle_gaps"]
@@ -48,7 +49,8 @@ def test_train_split(lines):
 def test_render_split(lines):
     d = lines["tiny_mesh.render"]
     split = d["split"]
-    assert set(split) == {"project_ms", "bin_ms", "bin_sync_ms", "pairs", "host_syncs"}
+    assert set(split) == {"project_ms", "bin_ms", "bin_sync_ms", "pairs", "host_syncs",
+                          "project_kernel"}
     assert split["host_syncs"] == 1 and split["pairs"] > 0
     assert "stage_ms" not in d
     nested = d["profiled"]["nested_idle_gaps"]

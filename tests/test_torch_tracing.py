@@ -114,9 +114,11 @@ def test_render_spans_and_counts():
     assert _paths(rec) == (["render"] + [f"render/{p}" for p in RENDER_SPANS]) * 2 + RENDER_SPANS
     # a top-level span without a request id takes the next one
     assert [s.request for s in rec.spans] == [10] * 5 + [11] * 5 + [12, 13, 13, 14]
-    assert [n for n, _, _ in rec.counts] == ["host_syncs", "pairs"] * 3
-    assert [rec.path(i) for _, _, i in rec.counts[:2]] == ["render/bin/bin_sync", "render/bin"]
+    assert [n for n, _, _ in rec.counts] == ["project_kernel", "host_syncs", "pairs"] * 3
+    assert [rec.path(i) for _, _, i in rec.counts[:3]] == ["render/project",
+                                                           "render/bin/bin_sync", "render/bin"]
     assert rec.totals()["host_syncs"] == 3  # one read of the pair count a render
+    assert rec.totals()["project_kernel"] == 0  # CPU tensors: `preprocess`
 
 
 @pytest.mark.parametrize("capacity", [None, 7])
