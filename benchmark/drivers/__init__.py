@@ -32,13 +32,13 @@ def peak_bytes(dev) -> int:
     return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
 
-def walk(scene, params: dict, view_index: int) -> dict:
-    """The walk counts of the reference's own projection and binning of
-    `params` through view `view_index`."""
+def walk(scene, params: dict, alive: torch.Tensor, view_index: int) -> dict:
+    """The walk counts of the reference's own projection and binning of the
+    rows of `params` that `alive` marks, through view `view_index`."""
     with torch.no_grad():
-        bag = bag_for(scene.kind, params, scene.faces, scene.rig)
+        bag = bag_for(scene.kind, params, scene.faces, scene.rig, alive)
         view = make_view(*scene.views[view_index], scene.fovx, scene.fovy, scene.width,
-                         scene.height, scene.faces.device)
+                         scene.height, scene.alive.device)
         proj = project(bag, view, scene.sh_degree)
         return walk_counts(proj, bin_tiles(proj, scene.height, scene.width), scene.height,
                            scene.width)
@@ -58,10 +58,23 @@ class steady_host:
         gc.unfreeze()
 
 
-def timed(seconds: float, step, dev) -> tuple[int, float, list]:
+def _probe_ms() -> float:
+    """Milliseconds of a fixed piece of Python work: the host's own speed."""
+    t, x = time.perf_counter(), 0
+    for i in range(200_000):
+        x += i * i % 7
+    return 1e3 * (time.perf_counter() - t)
+
+
+def timed(seconds: float, step, dev, host: dict | None = None) -> tuple[int, float, list]:
     """Call `step(position)` from position 0 until `seconds` have passed on
     the host clock, then wait for the device: (steps, seconds, the rate in
-    each tenth of the stretch, steps a second by the host clock)."""
+    each tenth of the stretch, steps a second by the host clock). Where
+    `host` is a dict, the host's part goes into it: the CPU time of the
+    calling thread and of the process as shares of the stretch, and
+    `_probe_ms` before and after it."""
+    before = _probe_ms() if host is not None else None
+    thread0, process0 = time.thread_time(), time.process_time()
     n, t0, ends = 0, time.perf_counter(), []
     while True:
         step(n)
@@ -71,6 +84,10 @@ def timed(seconds: float, step, dev) -> tuple[int, float, list]:
             break
     sync(dev)
     elapsed = time.perf_counter() - t0
+    if host is not None:
+        host.update(thread_cpu=(time.thread_time() - thread0) / elapsed,
+                    process_cpu=(time.process_time() - process0) / elapsed,
+                    probe_ms=[before, _probe_ms()])
     tenths = [0] * 10
     for t in ends:
         tenths[min(9, int(10 * t / ends[-1]))] += 1

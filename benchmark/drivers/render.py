@@ -4,9 +4,10 @@ into one page-locked host buffer, reused, so that the copy neither stages
 through pageable memory nor faults in fresh pages each view. Set-up renders
 the warm-up passes over every view; the window renders views in the
 traffic's order for `seconds`, and a traced run follows it with a stretch
-of as many seconds under the profiler. The check compares the traffic's
-`checked_views` views, drawn from the seed among the window's first
-`check_among`, with the reference's render, once the program is freed."""
+under the profiler, as long as the window up to `tracing.PROFILED_S`. The
+check compares the traffic's `checked_views` views, drawn from the seed
+among the window's first `check_among`, with the reference's render, once
+the program is freed."""
 from __future__ import annotations
 
 import random
@@ -52,7 +53,8 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
 
     phases["window"] = time.perf_counter()
     with steady_host():
-        views, window_s, tenths = timed(seconds, view, dev)
+        host_shares = {}
+        views, window_s, tenths = timed(seconds, view, dev, host_shares)
     ctx = {"steps": views, "window_s": window_s}
     attempted = views
     if trace:
@@ -71,7 +73,7 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
             bad.add_((~torch.isfinite(image)).any())
 
         with steady_host(), tracing.Profiled(dev) as profiled:
-            attempted += timed(seconds, traced_view, dev)[0]
+            attempted += timed(min(seconds, tracing.PROFILED_S), traced_view, dev)[0]
         ctx["trace"] = profiled.summarize(c["trace_dir"])
         del profiled
     failed = int(bad)
@@ -82,17 +84,18 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
     exact_float32()
     if trace:
         ctx["samples"] = []
+        live = int(scene.alive.sum())
         for position, i in sampled:
-            counts = walk(scene, scene.params, i)
+            counts = walk(scene, scene.params, scene.alive, i)
             ctx["samples"].append({"position": position, "view": i, "walk": counts,
-                                   "flops": ops.view_flops(scene.n_gaussians, scene.height,
-                                                           scene.width, counts)})
+                                   "flops": ops.view_flops(live, scene.height, scene.width,
+                                                           counts)})
         free(dev)
     if not kept:
         raise RuntimeError("the window rendered none of the views to check")
     mean, rms, worst = 0.0, 0.0, 0.0
     with torch.no_grad():
-        bag = bag_for(scene.kind, scene.params, scene.faces, scene.rig)
+        bag = bag_for(scene.kind, scene.params, scene.faces, scene.rig, scene.alive)
         for i, image in sorted(kept.items()):
             v = make_view(*scene.views[i], scene.fovx, scene.fovy, scene.width, scene.height, dev)
             want = torch.clamp(reference_render(bag, v, scene.bg, scene.sh_degree), 0, 1).cpu()
@@ -106,5 +109,5 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
             "numbers": {"image_mean_gap": mean},
             "diagnostics": {"checked_views": sorted(kept), "image_rms_gap": rms,
                             "image_max_gap": worst, "render_ms_p50": 1e3 * q[49],
-                            "window_rate_tenths": tenths},
+                            "window_rate_tenths": tenths, "window_host": host_shares},
             "ctx": ctx}

@@ -2,9 +2,15 @@
 (`make_train_step`, as `apps/train` builds it), one view a step in the
 traffic's order. Set-up runs the checked steps through the window's own
 call and feed, then the warm-up steps; the window runs steps for
-`seconds`. In a traced run the step's `mark` events time its stages in the
-window, and a stretch of as many seconds under the profiler follows. The
-reference follows the checked steps once the program is freed."""
+`seconds`. A traffic that names "density_control" (true, or an object
+that replaces keys of the schedule, `program.SCHEDULE`) runs density
+control (`program.Trainer.density_control`) on `apps/train`'s schedule
+after every warm-up step, window step and traced step, its split samples
+drawn from the seed; the checked steps, which the reference follows, must
+fall where the schedule does nothing. In a traced run the
+step's `mark` events time its stages in the window, and a stretch under
+the profiler follows, as long as the window up to `tracing.PROFILED_S`.
+The reference follows the checked steps once the program is freed."""
 from __future__ import annotations
 
 import statistics
@@ -49,7 +55,8 @@ def _elem_median(got: dict, want: dict) -> float:
 
 def train_numbers(prog: dict, ref: dict) -> tuple[dict, dict]:
     """(compared numbers, diagnostics) of the training check: each step's
-    loss, the first gradient's norm and the change's norm after the checked
+    loss (and the first step's alone, which no update has touched), the
+    first gradient's norm and the change's norm after the checked
     steps, and the norm of the first gradient's difference, each leaf's
     against the reference's reading or the median leaf's, the worst leaf;
     and the median leaf's reading of each of the three gradient and change
@@ -69,6 +76,7 @@ def train_numbers(prog: dict, ref: dict) -> tuple[dict, dict]:
     diff_gap, diff_leaf = _worst(diff_gaps)
     numbers = {
         "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])),
+        "loss1_gap": abs(prog["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
         "grad1_elem_median": _elem_median(prog["first_grad"], ref["first_grad"]),
         "grad1_norm_gap": grad,
         "grad1_norm_median_gap": statistics.median(grad_gaps.values()),
@@ -87,46 +95,68 @@ def train_numbers(prog: dict, ref: dict) -> tuple[dict, dict]:
     return numbers, diagnostics
 
 
-def _sample(scene, position: int, view_index: int, params: dict) -> dict:
-    counts = walk(scene, params, view_index)
+def _sample(scene, position: int, view_index: int, params: dict, alive: torch.Tensor) -> dict:
+    """The counts of a sampled step, from the snapshot of its state before
+    it (`params`, `alive`): Adam over every row, the rest over live rows."""
+    counts = walk(scene, params, alive, view_index)
     n_params = sum(int(p.numel()) for p in params.values())
-    model = ops.model_flops(scene.kind, scene.n_gaussians, int(scene.faces.shape[0]),
-                            scene.n_vertices)
-    return {"position": position, "view": view_index, "walk": counts,
-            "flops": ops.step_flops(model, scene.n_gaussians, n_params, scene.height,
-                                    scene.width, counts)}
+    live = int(alive.sum())
+    model = ops.model_flops(scene.kind, live, int(scene.faces.shape[0]), scene.n_vertices)
+    return {"position": position, "view": view_index, "rows": int(alive.shape[0]),
+            "live": live, "walk": counts,
+            "flops": ops.step_flops(model, live, n_params, scene.height, scene.width, counts)}
 
 
 def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dict,
         render_kwargs: dict | None) -> dict:
     traffic = c["traffic"]
     marks = tracing.StageMarks(dev) if trace else None
-    trainer = program.Trainer(scene, render_kwargs, mark=marks)
+    density = traffic.get("density_control")
+    density = ({} if density is True else density) if density else None
+    trainer = program.Trainer(scene, render_kwargs, mark=marks, density=density)
     phases["program"] = time.perf_counter()
     order = scenes.view_order(seed, len(scene.views), traffic["order"])
     checked = [next(order) for _ in range(traffic["checked_steps"])]
     losses = []
     for j, i in enumerate(checked):
         losses.append(float(trainer.step(i)))
+        if trainer.density_due():
+            raise ValueError(f"density control acts after checked step {trainer.state.step}; "
+                             "the configuration's start_step must place it later")
         if j == 0:
             first_grad = {k: None if m is None else m / (1 - trainer.beta1)
                           for k, m in trainer.adam_first_moments().items()}
     change = {k: p.detach() - scene.params[k] for k, p in trainer.params().items()}
     prog = {"losses": losses, "first_grad": first_grad, "change": change}
     phases["checked_steps"] = time.perf_counter()
-    for _ in range(traffic["warmup_steps"]):
+    density_gen = torch.Generator(device=dev)
+    density_gen.manual_seed(seed % (1 << 63))
+    events = []  # each density-control event's counts, stretch and position
+
+    def control(n, stretch):
+        event = trainer.density_control(density_gen)
+        if event:
+            events.append(dict(event, stretch=stretch, position=n))
+
+    for n in range(traffic["warmup_steps"]):
         trainer.step(next(order))
+        control(n, "warmup")
     sync(dev)
 
     window_losses = []
 
-    def step(_):
-        window_losses.append(trainer.step(next(order)))
+    def train(n, i, stretch):
+        window_losses.append(trainer.step(i))
+        control(n, stretch)
+
+    def step(n):
+        train(n, next(order), "window")
 
     first = len(marks.steps) if trace else 0
     phases["window"] = time.perf_counter()
     with steady_host():
-        steps, window_s, tenths = timed(seconds, step, dev)
+        host_shares = {}
+        steps, window_s, tenths = timed(seconds, step, dev, host_shares)
     ctx = {"steps": steps, "window_s": window_s}
     if trace:
         ctx["stage_ms"] = marks.stage_ms(first, len(marks.steps))
@@ -137,12 +167,13 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
             i = next(order)
             if n in sample:
                 snapshots.append((n, i, {k: p.detach().clone()
-                                         for k, p in trainer.params().items()}))
-            window_losses.append(trainer.step(i))
+                                         for k, p in trainer.params().items()},
+                                  trainer.state.alive.clone()))
+            train(n, i, "traced")
 
         with steady_host(), tracing.Profiled(dev) as profiled:
             marks.timeline = profiled.timeline
-            timed(seconds, traced_step, dev)
+            timed(min(seconds, tracing.PROFILED_S), traced_step, dev)
         marks.timeline = None
         ctx["trace"] = profiled.summarize(c["trace_dir"])
         del profiled
@@ -154,11 +185,19 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
 
     exact_float32()
     if trace:
-        ctx["samples"] = [_sample(scene, k, i, params) for k, i, params in snapshots]
+        ctx["samples"] = [_sample(scene, *snapshot) for snapshot in snapshots]
         del snapshots
         free(dev)
     ref = train_steps(scene, checked)
     numbers, diagnostics = train_numbers(prog, ref)
+    diagnostics["window_rate_tenths"] = tenths
+    diagnostics["window_host"] = host_shares
+    if density is not None:
+        diagnostics["density_events"] = events
+        diagnostics["alive_at_setup"] = int(scene.alive.sum())
+    if trace:
+        diagnostics["sampled_rows"] = [[s["position"], s["rows"], s["live"]]
+                                       for s in ctx["samples"]]
     return {"e2e": {"train_step_ms": 1e3 * window_s / steps},
             "attempted": attempted, "failed": failed, "peak": peak, "numbers": numbers,
-            "diagnostics": dict(diagnostics, window_rate_tenths=tenths), "ctx": ctx}
+            "diagnostics": diagnostics, "ctx": ctx}

@@ -5,7 +5,12 @@ model's files `scenes/<gs_type>.py`, `program/<gs_type>.py`,
 traffic mix (`traffic/<traffic>.json`, whose "driver" names
 `drivers/<driver>.py`); `limits/<cell>.json` holds the limit of each number
 that decides `correct`; each per-layer metric is read by
-`metrics/<metric>.py`.
+`metrics/<metric>.py`. A kind need not sit on a mesh: its scene file may
+make its own parameters in a buffer of more rows than are alive, with their
+mask, and derive its learning rates (`scenes`); its program file may give
+the model state's constants (`program`); and a training traffic may switch
+on density control on `apps/train`'s schedule ("density_control",
+`drivers/train.py`).
 
 A run builds its inputs from the seed (`scenes`), and the driver runs the
 program (`program`) through set-up, the checked first steps or views and a

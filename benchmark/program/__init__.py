@@ -1,9 +1,12 @@
 """The system under test, driven through its own entry points: the port's
 training step as `apps/train` builds it (`train.loop.make_train_step`) and
 its renderer as `apps/render` calls it, with the model of each kind made
-by `program/<gs_type>.py`. The only modules of the benchmark that import
-the program; they hand the program the inputs that `scenes` made and take
-back what the program produces."""
+by `program/<gs_type>.py` (`model(scene)`, `OPTIMIZATION`, and optionally
+`consts(scene)`, the model state's constants, by default the scene's
+faces), and density control (densify and prune, opacity resets) on
+`apps/train`'s schedule (`Trainer.density_control`). The only modules of the
+benchmark that import the program; they hand the program the inputs that
+`scenes` made and take back what the program produces."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +16,7 @@ import torch
 from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
 from gaussian_mesh_splatting_tpu_torch.renderer import render
 from gaussian_mesh_splatting_tpu_torch.train import loop as train_loop
+from gaussian_mesh_splatting_tpu_torch.train.densify import densify_and_prune, reset_opacity
 from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
 
 PACKAGE = "gaussian_mesh_splatting_tpu_torch"
@@ -46,21 +50,48 @@ def optimization_for(scene) -> dict:
 
 
 def model_state(scene) -> dict:
-    return {"params": scene.params, "consts": {"faces": scene.faces},
-            "alive": torch.ones(scene.n_gaussians, dtype=torch.bool, device=scene.faces.device)}
+    kind = _kind(scene)
+    consts = kind.consts(scene) if hasattr(kind, "consts") else {"faces": scene.faces}
+    return {"params": scene.params, "consts": consts, "alive": scene.alive}
+
+
+# the keys of the density-control schedule that a traffic may override
+SCHEDULE = ("densification_interval", "densify_from_iter", "densify_until_iter",
+            "opacity_reset_interval")
+
+
+def density_events(cfg, it: int, white_background: bool) -> tuple[bool, bool]:
+    """(densify and prune, reset the opacity) after step `it`, as
+    `apps/train` schedules them from the optimization config."""
+    if not getattr(cfg, "densify", False) or it >= cfg.densify_until_iter:
+        return False, False
+    densify = it > cfg.densify_from_iter and it % cfg.densification_interval == 0
+    reset = it % cfg.opacity_reset_interval == 0 or (
+        white_background and it == cfg.densify_from_iter)
+    return densify, reset
 
 
 class Trainer:
     """The port's training state and step. `render_kwargs` go to the
     rasterizer (the precision modes of a control run); `mark` is the step's
-    stage hook."""
+    stage hook; `density`, where not None, switches density control on, on
+    the kind's own schedule with the `SCHEDULE` keys it names replaced."""
 
-    def __init__(self, scene, render_kwargs: dict | None = None, mark=None):
+    def __init__(self, scene, render_kwargs: dict | None = None, mark=None,
+                 density: dict | None = None):
         exact_float32()
-        dev = scene.faces.device
+        dev = scene.alive.device
         self.scene = scene
+        self.density = None
+        if density is not None:
+            if set(density) - set(SCHEDULE):
+                raise ValueError(f"density control takes only {SCHEDULE}, not "
+                                 f"{sorted(set(density) - set(SCHEDULE))}")
+            self.density = optimization_config(_kind(scene).OPTIMIZATION, **density)
+            self.white_background = bool((scene.bg == 1).all())
         self.cams = cameras(scene, dev)
-        self.state = make_train_state(model_state(scene), optimization_for(scene))
+        self.state = make_train_state(model_state(scene), optimization_for(scene),
+                                      scene.cameras_extent)
         self.state.step = scene.start_step
         self.state.active_sh_degree = scene.sh_degree
         self.step_fn = train_loop.make_train_step(model_for(scene), optimization_for(scene),
@@ -71,6 +102,36 @@ class Trainer:
         """One step on view i; its loss, a 0-d tensor on the device."""
         _, metrics = self.step_fn(self.state, self.cams[i], self.scene.gt[i], self.scene.bg)
         return metrics["loss"]
+
+    def density_due(self) -> bool:
+        """Whether density control acts after step `state.step`."""
+        return self.density is not None and any(
+            density_events(self.density, self.state.step, self.white_background))
+
+    def density_control(self, generator: torch.Generator) -> dict:
+        """Density control after step `state.step`, as `apps/train` runs it:
+        `train/densify.densify_and_prune` with its arguments (`generator`
+        draws the split samples), its counts read to the host in one read,
+        then `reset_opacity`. The counts of what ran ("opacity_reset" 1
+        where the opacity was reset); empty where nothing did."""
+        if self.density is None:
+            return {}
+        cfg = self.density
+        densify, reset = density_events(cfg, self.state.step, self.white_background)
+        event = {}
+        if densify:
+            self.state, info = densify_and_prune(
+                self.state, grad_threshold=cfg.densify_grad_threshold,
+                min_opacity=cfg.min_opacity, extent=self.scene.cameras_extent,
+                percent_dense=cfg.percent_dense,
+                # screen/world-size pruning starts after the first opacity reset
+                size_threshold=20.0 if self.state.step > cfg.opacity_reset_interval else 0.0,
+                scaling_cols=self.state.params["scaling"].shape[1], generator=generator)
+            event = dict(zip(info, torch.stack(list(info.values())).tolist()))
+        if reset:
+            self.state = reset_opacity(self.state)
+            event["opacity_reset"] = 1
+        return event
 
     def params(self) -> dict:
         return {g["name"]: g["params"][0] for g in self.state.optimizer.param_groups}
@@ -92,7 +153,7 @@ class Renderer:
     then one `render(..., backend="auto")` a view."""
 
     def __init__(self, scene, render_kwargs: dict | None = None):
-        dev = scene.faces.device
+        dev = scene.alive.device
         self.scene = scene
         self.cams = cameras(scene, dev)
         self.kwargs = render_kwargs or {}

@@ -5,7 +5,9 @@ frame. How a kind gets its vertices and weights is in
 `reference/models/<kind>.py`.
 
 A bag is a dict: xyz (N, 3), rot (N, 3, 3) with the frame's axes as
-columns, scale (N, 3), opacity (N,), sh (N, K, 3)."""
+columns, scale (N, 3), opacity (N,), sh (N, K, 3), of the live rows alone:
+a kind whose rows are a buffer (some dead) gives a row each, and `bag_for`
+drops the dead."""
 from __future__ import annotations
 
 import importlib
@@ -47,6 +49,11 @@ def gaussians_on_faces(tri: torch.Tensor, weights: torch.Tensor, p: dict) -> dic
     }
 
 
-def bag_for(kind: str, p: dict, faces: torch.Tensor, rig: dict | None) -> dict:
-    """The bag of the model of `kind`, from `reference/models/<kind>.py`."""
-    return importlib.import_module(f".{kind}", __name__).bag(p, faces, rig)
+def bag_for(kind: str, p: dict, faces: torch.Tensor, rig: dict | None,
+            alive: torch.Tensor) -> dict:
+    """The bag of the model of `kind`, from `reference/models/<kind>.py`: the
+    Gaussians of the rows that `alive` marks (every row of a mesh kind)."""
+    bag = importlib.import_module(f".{kind}", __name__).bag(p, faces, rig)
+    if bool(alive.all()):
+        return bag
+    return {k: v[alive] for k, v in bag.items()}

@@ -1,13 +1,21 @@
 """The inputs of a run, made by the benchmark from its configuration and
 `--seed` (never by the program) and handed alike to the program and to the
 plain reference: the model's geometry (`scenes/<gs_type>.py`: a mesh, a
-FLAME-format head rig), the cameras, the ground-truth images and the raw
-parameters a state starts from.
+FLAME-format head rig, or no faces at all), the cameras, the ground-truth
+images and the raw parameters a state starts from, with the mask of the
+rows that are alive.
 
 The geometry (mesh, head, camera positions) is fixed by the configuration;
 the seed draws the rig's blendshape and corrective bases, the per-splat
 weights, the colours, the images and the order of the views, on the device
 with one `torch.Generator`, in a few large calls.
+
+A kind's file gives `geometry(config, gen, dev)`, and may give
+`gaussians(config, traffic, gen, dev)`, its own per-Gaussian parameters and
+alive mask (a buffer of more rows than are alive), in place of the
+mesh-bound ones of `gaussian_params`; and `learning_rates(config, extent)`,
+each parameter's rate as a number or as a function of the step, in place of
+the configuration's constant "learning_rates".
 """
 from __future__ import annotations
 
@@ -33,17 +41,25 @@ class Scene:
     gt: torch.Tensor | None  # (n_views, H, W, 3), train views only
     bg: torch.Tensor  # (3,)
     params: dict  # raw parameters the state starts from
-    faces: torch.Tensor  # (F, 3) int64
+    alive: torch.Tensor  # (rows,) bool: the rows of `params` that hold a Gaussian
+    faces: torch.Tensor  # (F, 3) int64; (0, 3) for a kind not on a mesh
     rig: dict | None  # the model's further tensors (the FLAME-format rig of gs_flame)
     n_vertices: int
     sh_degree: int
     lambda_dssim: float
-    lr: dict  # learning rate of each parameter
+    lr: dict  # learning rate of each parameter: a number, or a function of the step
     start_step: int
+    cameras_extent: float  # the Blender reader's NeRF normalisation radius of the train views
 
     @property
     def n_gaussians(self) -> int:
+        """The rows of the parameters, alive or not."""
         return int(self.params["opacity"].shape[0])
+
+    def learning_rates(self, step: int) -> dict:
+        """Each parameter's learning rate for update number `step` (0-based,
+        the state's step counter before the update)."""
+        return {k: v(step) if callable(v) else v for k, v in self.lr.items()}
 
 
 def hemisphere_views(n: int, radius: float, elevation_deg, azimuth_offset: float) -> list:
@@ -68,6 +84,32 @@ def hemisphere_views(n: int, radius: float, elevation_deg, azimuth_offset: float
         w2c = np.linalg.inv(c2w)
         out.append((w2c[:3, :3].T.copy(), w2c[:3, 3].copy()))
     return out
+
+
+def cameras_extent(views: list) -> float:
+    """The radius of the Blender reader's NeRF normalisation
+    (`scene/dataset_readers.get_nerfpp_norm`): 1.1 times the largest distance
+    of a camera centre from the centres' mean, the centres taken from the
+    float32 world-to-view matrices as the reader takes them."""
+    centers = []
+    for R, T in views:
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = R.T, T
+        centers.append(np.linalg.inv(w2c.astype(np.float32))[:3, 3])
+    centers = np.stack(centers)
+    return float(np.linalg.norm(centers - centers.mean(axis=0), axis=1).max() * 1.1)
+
+
+def expon_lr(lr_init: float, lr_final: float, max_steps: int):
+    """The 3DGS position schedule (Plenoxels' log-linear decay, no delay
+    steps) as step -> rate, in float32 as the port's `core/lr_schedule`
+    evaluates it: lr_init at step 0, lr_final from `max_steps` on."""
+    def rate(step: int) -> float:
+        t = torch.clamp(torch.tensor(step, dtype=torch.float32) / max_steps, 0, 1)
+        init, final = (torch.log(torch.tensor(x, dtype=torch.float32)) for x in (lr_init, lr_final))
+        return float(torch.exp(init * (1 - t) + final * t))
+
+    return rate
 
 
 def smooth_images(gen: torch.Generator, n: int, height: int, width: int, dev) -> torch.Tensor:
@@ -114,11 +156,22 @@ def build(config: dict, traffic: dict, seed: int, dev) -> Scene:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed % (1 << 63))
     kind = config["gs_type"]
-    geo = importlib.import_module(f".{kind}", __name__).geometry(config, gen, dev)
+    module = importlib.import_module(f".{kind}", __name__)
+    geo = module.geometry(config, gen, dev)
     faces = geo["faces"]
     params = dict(geo["params"])
-    params.update(gaussian_params(gen, faces.shape[0], config["num_splats"], config["sh_degree"],
-                                  traffic["state"], dev))
+    alive = None
+    if hasattr(module, "gaussians"):
+        own = module.gaussians(config, traffic, gen, dev)
+        params.update(own["params"])
+        alive = own["alive"]
+    else:
+        params.update(gaussian_params(gen, faces.shape[0], config["num_splats"],
+                                      config["sh_degree"], traffic["state"], dev))
+    extent = cameras_extent(hemisphere_views(config["train_views"], config["camera_radius"],
+                                             config["elevation_deg"], 0.0))
+    lr = (module.learning_rates(config, extent) if hasattr(module, "learning_rates")
+          else dict(config["learning_rates"]))
     split = traffic["views"]
     n_views = config[f"{split}_views"]
     offset = 0.0 if split == "train" else GOLDEN_ANGLE / 2
@@ -128,10 +181,13 @@ def build(config: dict, traffic: dict, seed: int, dev) -> Scene:
     fovy = 2 * math.atan(h / (2 * (w / (2 * math.tan(fovx / 2)))))
     gt = smooth_images(gen, n_views, h, w, dev) if traffic["ground_truth"] else None
     bg = torch.full((3,), 1.0 if config["white_background"] else 0.0, device=dev)
+    if alive is None:  # made after the images, so as not to add to their peak
+        alive = torch.ones(params["opacity"].shape[0], dtype=torch.bool, device=dev)
     return Scene(kind=kind, width=w, height=h, fovx=fovx, fovy=fovy, views=views, gt=gt, bg=bg,
-                 params=params, faces=faces, rig=geo["rig"], n_vertices=geo["n_vertices"],
-                 sh_degree=config["sh_degree"], lambda_dssim=config["lambda_dssim"],
-                 lr=dict(config["learning_rates"]), start_step=config["start_step"])
+                 params=params, alive=alive, faces=faces, rig=geo["rig"],
+                 n_vertices=geo["n_vertices"], sh_degree=config["sh_degree"],
+                 lambda_dssim=config["lambda_dssim"], lr=lr, start_step=config["start_step"],
+                 cameras_extent=extent)
 
 
 def check_counts(stated: dict, built: dict) -> None:

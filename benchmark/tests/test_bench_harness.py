@@ -1,5 +1,6 @@
-"""The harness on the CPU at tiny sizes (`tiny.py`): cells, configurations
-and metrics found by name, the result line's layout, `correct` false under
+"""The harness on the CPU at tiny sizes (`tiny.py`): cells, configurations,
+metrics, model kinds (on a mesh or not, densifying in the window) and
+drivers found by name, the result line's layout, `correct` false under
 each planted fault and under the precision control, the refusal without a
 card, and no JAX anywhere in what the harness loads."""
 import ast
@@ -12,7 +13,7 @@ import time
 
 import pytest
 
-from benchmark import faults, harness
+from benchmark import faults, harness, program
 from benchmark.control import readings
 from benchmark.tests.tiny import BENCH, ROOT, make_copy
 
@@ -198,3 +199,220 @@ def test_new_model_kind_and_driver_are_found_by_name(tiny):
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["correct"] is True and "train_step_ms" in result["metrics"]
+
+
+PADDED_KIND = {
+    "scenes": '''"""A kind not on a mesh: vanilla 3DGS from points in a cube, in a buffer
+of more rows than points (the rest dead, padded as the port pads them). All
+but `bright` points start under the pruning opacity, so that the live rows
+grow by doubling from `bright` and the buffer fills only after a few
+density-control events."""
+import math
+
+import torch
+
+from . import expon_lr
+
+
+def geometry(config, gen, dev):
+    return {"params": {}, "faces": torch.zeros((0, 3), dtype=torch.int64, device=dev),
+            "rig": None, "n_vertices": 0}
+
+
+def gaussians(config, traffic, gen, dev):
+    n, rows, k = config["points"], config["rows"], (config["sh_degree"] + 1) ** 2
+    live = {"xyz": (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) * config["half_width"],
+            "f_dc": torch.rand((n, 1, 3), generator=gen, device=dev) * 2 - 0.5,
+            "f_rest": torch.zeros((n, k - 1, 3), device=dev),
+            "opacity": torch.full((n, 1), math.log(0.001 / 0.999), device=dev),
+            "scaling": torch.full((n, 3), math.log(config["scale"]), device=dev),
+            "rotation": torch.nn.functional.pad(torch.ones((n, 1), device=dev), (0, 3))}
+    live["opacity"][:config["bright"]] = math.log(0.1 / 0.9)
+    params = {key: torch.cat([v, v.new_zeros((rows - n, *v.shape[1:]))]) for key, v in live.items()}
+    params["rotation"][n:, 0] = 1.0
+    params["scaling"][n:] = -10.0
+    return {"params": params, "alive": torch.arange(rows, device=dev) < n}
+
+
+def learning_rates(config, extent):
+    lr = dict(config["learning_rates"])
+    lr["xyz"] = expon_lr(lr.pop("position_lr_init") * extent,
+                         lr.pop("position_lr_final") * extent, config["position_lr_max_steps"])
+    return lr
+''',
+    "program": '''"""The port's `gs` model, with no constants."""
+from gaussian_mesh_splatting_tpu_torch.models import vanilla
+
+OPTIMIZATION = "gs"
+
+
+def model(scene):
+    return vanilla
+
+
+def consts(scene):
+    return {}
+''',
+    "reference/models": '''"""Vanilla 3DGS: exp of the log-scales, sigmoid of the opacity, the
+normalized quaternion (w, x, y, z) as a rotation."""
+import torch
+
+
+def bag(p, faces=None, rig=None):
+    q = p["rotation"] / (torch.linalg.vector_norm(p["rotation"], dim=-1, keepdim=True) + 1e-12)
+    w, x, y, z = q.unbind(-1)
+    rot = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                       2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                       2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                      dim=-1).reshape(-1, 3, 3)
+    return {"xyz": p["xyz"], "rot": rot, "scale": torch.exp(p["scaling"]),
+            "opacity": torch.sigmoid(p["opacity"][:, 0]),
+            "sh": torch.cat([p["f_dc"], p["f_rest"]], dim=1)}
+''',
+    "counts/models": '''"""Vanilla 3DGS per Gaussian: exp 3, sigmoid 4, the quaternion's norm and
+matrix 40."""
+
+
+def model_flops(n_gaussians, n_faces, n_vertices):
+    return 47 * n_gaussians
+''',
+}
+
+
+def _files(root: str) -> dict:
+    out = {}
+    for d, dirs, names in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for name in names:
+            with open(os.path.join(d, name), "rb") as f:
+                out[os.path.relpath(os.path.join(d, name), root)] = f.read()
+    return out
+
+
+def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
+    """A kind whose Gaussians are not on a mesh (its own parameters in a
+    buffer of 4x the rows, an alive mask, a learning-rate schedule on the
+    cameras' extent) and a traffic that densifies inside the window, added
+    as new files and entries in BENCHMARK.json only: its train cell (trace
+    off and on) and render cell run `correct` from the copy, the window
+    densifies, the traced samples count their snapshot's live rows, and
+    every file that was there is byte-equal afterwards."""
+    bench = os.path.join(tiny, os.path.basename(BENCH))
+    before = _files(tiny)
+    for role, source in PADDED_KIND.items():
+        with open(os.path.join(bench, role, "gs_padded.py"), "w") as f:
+            f.write(source)
+    with open(os.path.join(bench, "configs", "tiny_mesh.json")) as f:
+        mesh = json.load(f)
+    config = {k: mesh[k] for k in ("width", "height", "camera_angle_x", "camera_radius",
+                                   "elevation_deg", "sh_degree", "white_background",
+                                   "train_views", "test_views", "lambda_dssim",
+                                   "attr_precision", "grad_precision")}
+    config.update(name="tiny_padded", gs_type="gs_padded", points=150, bright=2, rows=600,
+                  half_width=1.0, scale=0.08, start_step=600, position_lr_max_steps=30000,
+                  learning_rates={"position_lr_init": 0.00016, "position_lr_final": 0.0000016,
+                                  "f_dc": 0.0025, "f_rest": 0.000125, "opacity": 0.05,
+                                  "scaling": 0.005, "rotation": 0.001},
+                  reduced=[])
+    with open(os.path.join(bench, "configs", "tiny_padded.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(bench, "traffic", "train_views.json")) as f:
+        # apps/train densifies every 100 steps: too few for a 3 s window on
+        # the CPU at these sizes, so the traffic overrides the interval
+        traffic = dict(json.load(f), state="initial",
+                       density_control={"densification_interval": 4},
+                       sample_launches=[0, 3, 6, 9])
+    with open(os.path.join(bench, "traffic", "train_views_densify.json"), "w") as f:
+        json.dump(traffic, f)
+    limits = {"train": {"loss_gap": 1e-4, "grad1_elem_median": 1e-3,
+                        "grad1_norm_median_gap": 1e-3, "change3_median_gap": 1e-3,
+                        "change3_norm_gap": 1e-3},
+              "render": {"image_mean_gap": 1e-4}}
+    for kind, limit in limits.items():
+        with open(os.path.join(bench, "limits", f"tiny_padded.{kind}.json"), "w") as f:
+            json.dump(limit, f)
+    path = os.path.join(tiny, "BENCHMARK.json")
+    with open(path) as f:
+        spec = json.load(f)
+    old = json.loads(json.dumps(spec))
+    spec["configs"].append({"name": "tiny_padded", "source": "https://arxiv.org/abs/2308.04079",
+                            "file": "benchmark/configs/tiny_padded.json", "reduced": [],
+                            "why": "vanilla 3DGS in a padded buffer"})
+    cells = {"tiny_padded.train": "train_views_densify", "tiny_padded.render": "test_views"}
+    for name, traffic_name in cells.items():
+        spec["workloads"].append({"name": name, "config": "tiny_padded", "traffic": traffic_name,
+                                  "chips": 1, "why": "a kind not on a mesh"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        for mesh_cell, cell in (("tiny_mesh.train", "tiny_padded.train"),
+                                ("tiny_mesh.render", "tiny_padded.render")):
+            if mesh_cell in m.get("workloads", []):
+                m["workloads"].append(cell)
+    with open(path, "w") as f:
+        json.dump(spec, f)
+
+    code = ("import sys, json, time; sys.path[:0] = [%r, %r]\n"
+            "import torch; torch.set_num_threads(1)\n"
+            "from benchmark import harness\n"
+            "assert harness.__file__.startswith(%r), harness.__file__\n"
+            "for cell, trace, seconds in [('tiny_padded.train', False, 3.0),\n"
+            "                             ('tiny_padded.train', True, 3.0),\n"
+            "                             ('tiny_padded.render', False, 3.0)]:\n"
+            "    r, lines = harness.run_cell(%r, cell, 2**31 + 23, seconds, trace, 'cpu',\n"
+            "                                time.perf_counter())\n"
+            "    print(json.dumps({'result': r, 'lines': lines}))\n") % (tiny, ROOT, tiny, tiny)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=900, cwd=tiny, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    runs = [json.loads(line) for line in proc.stdout.strip().splitlines()[-3:]]
+    for run_ in runs:
+        assert run_["result"]["correct"] is True, run_["lines"][-6:]
+    assert "train_step_ms" in runs[0]["result"]["metrics"]
+    assert "step_mfu.train" in runs[1]["result"]["metrics"]
+    assert set(runs[2]["result"]["metrics"]) == {"render_views_per_s", "render_ms_p95", "setup_s"}
+
+    diags = [json.loads(next(l for l in r["lines"] if l.startswith("diagnostics "))[12:])
+             for r in runs[:2]]
+    for diag in diags:
+        events = diag["density_events"]
+        # the checked steps 601-603 pass no event; warm-up step 604 densifies
+        assert [e["stretch"] for e in events][:1] == ["warmup"]
+        assert sum(e["stretch"] == "window" for e in events) >= 2
+        assert diag["alive_at_setup"] == 150
+        assert any(e["n_alive"] != 150 for e in events), events
+    # each sampled step of the traced stretch counts the live rows of its own
+    # snapshot: those of the last event before it
+    diag = diags[1]
+    events = diag["density_events"]
+    for position, rows, live in diag["sampled_rows"]:
+        before_it = [e for e in events
+                     if e["stretch"] != "traced" or e["position"] < position]
+        assert rows == 600
+        assert live == (before_it[-1]["n_alive"] if before_it else 150)
+    assert any(live not in (150, 600) for _, _, live in diag["sampled_rows"])
+
+    after = _files(tiny)
+    changed = [p for p, data in before.items() if p != "BENCHMARK.json" and after[p] != data]
+    assert changed == []
+    with open(path) as f:
+        now = json.load(f)
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        for was, is_ in zip(old[key], now[key]):
+            assert {k: v for k, v in is_.items() if k != "workloads"} == \
+                {k: v for k, v in was.items() if k != "workloads"}
+            assert is_.get("workloads", [])[:len(was.get("workloads", []))] == \
+                was.get("workloads", [])
+
+
+@pytest.mark.parametrize("it, white, want", [
+    (499, False, (False, False)), (500, False, (False, False)), (500, True, (False, True)),
+    (600, False, (True, False)), (3000, False, (True, True)), (14900, True, (True, False)),
+    (15000, False, (False, False))])
+def test_density_schedule_is_apps_trains(it, white, want):
+    """Density control acts where `apps/train` acts: densify inside
+    (densify_from_iter, densify_until_iter) every densification_interval
+    steps, reset the opacity every opacity_reset_interval steps and at
+    densify_from_iter on a white background; never for a kind that does not
+    densify."""
+    assert program.density_events(program.optimization_config("gs"), it, white) == want
+    assert program.density_events(program.optimization_config("gs_mesh"), it, white) == \
+        (False, False)

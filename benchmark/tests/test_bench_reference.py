@@ -38,7 +38,7 @@ def test_bag_matches_the_port(config):
     s.params = {k: v + 0.05 * torch.randn_like(v) if k.startswith("flame_") else v
                 for k, v in s.params.items()}
     want = program.model_for(s).to_bag(program.model_state(s))
-    got = models.bag_for(s.kind, s.params, s.faces, s.rig)
+    got = models.bag_for(s.kind, s.params, s.faces, s.rig, s.alive)
     torch.testing.assert_close(got["xyz"], want.xyz, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got["scale"], want.scaling, rtol=1e-5, atol=1e-9)
     torch.testing.assert_close(got["opacity"], want.opacity[:, 0])
@@ -61,7 +61,7 @@ def test_render_matches_the_port(config):
     s = scene(config)
     bag = program.model_for(s).to_bag(program.model_state(s))
     cams = program.cameras(s, DEV)
-    ref_bag = models.bag_for(s.kind, s.params, s.faces, s.rig)
+    ref_bag = models.bag_for(s.kind, s.params, s.faces, s.rig, s.alive)
     for i in range(len(s.views)):
         want = port_render(bag, cams[i], s.bg, sh_degree=3, backend="auto").image
         view = camera.make_view(*s.views[i], s.fovx, s.fovy, s.width, s.height, DEV)
@@ -72,7 +72,7 @@ def test_render_matches_the_port(config):
 
 def test_chunked_composite_does_not_depend_on_the_chunk():
     s = scene("gs_mesh_nerf_synthetic")
-    bag = models.bag_for(s.kind, s.params, s.faces, s.rig)
+    bag = models.bag_for(s.kind, s.params, s.faces, s.rig, s.alive)
     view = camera.make_view(*s.views[0], s.fovx, s.fovy, s.width, s.height, DEV)
     proj = render.project(bag, view)
     bins = render.bin_tiles(proj, s.height, s.width)

@@ -21,6 +21,10 @@ import torch
 STAGES = ("to_bag", "render", "loss", "backward", "adam", "stats")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 BETWEEN = "between"  # the host outside every labelled part
+# the longest profiled stretch of a traced run: what it gives are times and
+# shares a step or view, which a longer stretch does not change, while the
+# trace to reduce grows with it
+PROFILED_S = 20.0
 
 
 class Boundaries:
