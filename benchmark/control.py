@@ -1,8 +1,9 @@
 """Readings for the limits of `correct`, on the card, at a cell's own size:
 the program as configured ("exact"), the control ("bf16": the program's own
 bfloat16 pair-table modes, the nearest precision below the configuration's
-float32), or the program with a fault planted ("unchanged", "half",
-"answer"), over many seeds in one process, each with a short window:
+float32), or the program with a fault planted (`faults.FAULTS`: "unchanged",
+"half", "answer", "densify_skipped", "split_unsampled"), over many seeds in
+one process, each with a short window:
 
     python3 benchmark/control.py --workload gs_mesh.train --mode bf16 \\
         --seeds 11 12 13 --seconds 1 [--out build/benchmark/control.jsonl]
@@ -37,7 +38,9 @@ def readings(workload: str, mode: str, seeds, seconds: float, device: str = "cud
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("control")
     p.add_argument("--workload", required=True)
-    p.add_argument("--mode", default="exact", choices=("exact", "bf16", "unchanged", "half", "answer"))
+    p.add_argument("--mode", default="exact",
+                   choices=("exact", "bf16", "unchanged", "half", "answer", "densify_skipped",
+                            "split_unsampled"))
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--seconds", type=float, default=1.0)
     p.add_argument("--out", default=None)

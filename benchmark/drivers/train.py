@@ -7,12 +7,18 @@ that replaces keys of the schedule, `program.SCHEDULE`) runs density
 control (`program.Trainer.density_control`) on `apps/train`'s schedule
 after every warm-up step, window step and traced step, its split samples
 drawn from the seed; the checked steps, which the reference follows, must
-fall where the schedule does nothing. In a traced run the
-step's `mark` events time its stages in the window, and a stretch under
-the profiler follows, as long as the window up to `tracing.PROFILED_S`.
-The reference follows the checked steps once the program is freed."""
+fall where the schedule does nothing. There the warm-up runs on, past its
+steps where need be, to the first event, which is checked: its state is
+copied to the host before and after it, its split noise drawn here, and
+the plain reference (`reference/densify.py`) replays it on the copy from
+before (`density_numbers`). In a traced run the step's `mark` events time
+its stages in the window, two more time each density-control event there,
+and a stretch under the profiler follows, as long as the window up to
+`tracing.PROFILED_S`. The reference follows the checked steps and the
+checked event once the program is freed."""
 from __future__ import annotations
 
+import math
 import statistics
 import time
 
@@ -22,7 +28,13 @@ from . import free, peak_bytes, steady_host, sync, timed, walk
 from .. import program, scenes, tracing
 from ..counts import ops
 from ..reference import exact_float32
+from ..reference.densify import density_event
 from ..reference.train import train_steps
+
+# the numbers of the checked density-control event (`density_numbers`), which
+# the limits of a traffic with "density_control" must hold
+DENSITY_NUMBERS = ("density_alive_mismatch", "density_count_gap", "density_param_gap",
+                   "density_moment_gap")
 
 
 def _norms(tensors: dict) -> dict:
@@ -95,6 +107,44 @@ def train_numbers(prog: dict, ref: dict) -> tuple[dict, dict]:
     return numbers, diagnostics
 
 
+def _rel_gap(got: torch.Tensor | None, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, over every element; inf where the
+    program has no such tensor."""
+    if got is None:
+        return math.inf
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def density_numbers(got: dict, want: dict) -> tuple[dict, dict]:
+    """(compared numbers, diagnostics) of a density-control event: `got`
+    the program's state after it (`program.snapshot`, with its "counts"),
+    `want` the reference's (`reference.densify.density_event`): the rows
+    whose alive flag differs, the largest gap of a count, and the worst
+    parameter's and the worst Adam moment's `_rel_gap` over every row, dead
+    ones included."""
+    params = {k: _rel_gap(got["params"].get(k), v) for k, v in want["params"].items()}
+    moments = {f"{k}.{m}": _rel_gap(got["moments"].get(k, {}).get(m), v)
+               for k, pair in want["moments"].items() for m, v in pair.items()}
+    counts = {k: abs(got["counts"].get(k, 0) - want["counts"].get(k, 0))
+              for k in set(got["counts"]) | set(want["counts"])}
+    param_gap, param_leaf = _worst(params)
+    moment_gap, moment_leaf = _worst(moments)
+    numbers = {"density_alive_mismatch": float((got["alive"] != want["alive"]).sum()),
+               "density_count_gap": float(max(counts.values(), default=0)),
+               "density_param_gap": param_gap, "density_moment_gap": moment_gap}
+    diagnostics = {"counts": got["counts"], "reference_counts": want["counts"],
+                   "param_gap_leaf": param_leaf, "moment_gap_leaf": moment_leaf,
+                   "param_gaps": params, "moment_gaps": moments}
+    return numbers, diagnostics
+
+
+def _to(tree, dev):
+    """`tree` (dicts of tensors and numbers) with its tensors on `dev`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
 def _sample(scene, position: int, view_index: int, params: dict, alive: torch.Tensor) -> dict:
     """The counts of a sampled step, from the snapshot of its state before
     it (`params`, `alive`): Adam over every row, the rest over live rows."""
@@ -134,13 +184,42 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
     events = []  # each density-control event's counts, stretch and position
 
     def control(n, stretch):
+        if not trainer.density_due():
+            return
+        timing = trace and stretch != "warmup"
+        if timing:
+            marks.density("start")
         event = trainer.density_control(density_gen)
-        if event:
-            events.append(dict(event, stretch=stretch, position=n))
+        if timing:
+            marks.density("end")
+        events.append(dict(event, stretch=stretch, position=n))
 
-    for n in range(traffic["warmup_steps"]):
+    def checked_control(n) -> dict:
+        """The checked event: the state before and after it, on the host;
+        its split noise drawn here, as the program would draw it."""
+        plan = trainer.density_plan()
+        before = program.snapshot(trainer.state)
+        noise = None
+        if plan["densify"] is not None:
+            noise = torch.randn((plan["densify"]["n_split"], before["alive"].shape[0], 3),
+                                generator=density_gen, device=dev)
+        event = trainer.density_control(noise=noise)
+        events.append(dict(event, stretch="warmup", position=n))
+        return {"plan": plan, "before": before, "noise": None if noise is None else noise.cpu(),
+                "after": dict(program.snapshot(trainer.state), counts=event)}
+
+    warmup, first_event, checked_event = traffic["warmup_steps"], None, None
+    if density is not None:
+        first_event = trainer.steps_to_density()
+        if first_event is None:
+            raise ValueError(f"density control never acts after step {trainer.state.step}")
+        warmup = max(warmup, first_event)
+    for n in range(warmup):
         trainer.step(next(order))
-        control(n, "warmup")
+        if first_event is not None and n == first_event - 1:
+            checked_event = checked_control(n)
+        else:
+            control(n, "warmup")
     sync(dev)
 
     window_losses = []
@@ -153,6 +232,7 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
         train(n, next(order), "window")
 
     first = len(marks.steps) if trace else 0
+    first_timed = len(marks.events) if trace else 0
     phases["window"] = time.perf_counter()
     with steady_host():
         host_shares = {}
@@ -160,6 +240,9 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
     ctx = {"steps": steps, "window_s": window_s}
     if trace:
         ctx["stage_ms"] = marks.stage_ms(first, len(marks.steps))
+        if density is not None:
+            ctx["density_ms"] = marks.density_ms(first_timed, len(marks.events))
+            ctx["density_events"] = [e for e in events if e["stretch"] == "window"]
         sample = set(traffic["sample_launches"])
         snapshots = []
 
@@ -190,6 +273,16 @@ def run(c: dict, scene, seed: int, seconds: float, trace: bool, dev, phases: dic
         free(dev)
     ref = train_steps(scene, checked)
     numbers, diagnostics = train_numbers(prog, ref)
+    del ref
+    if checked_event is not None:
+        noise = checked_event["noise"]
+        want = density_event(_to(checked_event["before"], dev), checked_event["plan"],
+                             None if noise is None else noise.to(dev))
+        event_numbers, diagnostics["density_check"] = density_numbers(
+            _to(checked_event["after"], dev), want)
+        numbers.update(event_numbers)
+        del checked_event, want
+        free(dev)
     diagnostics["window_rate_tenths"] = tenths
     diagnostics["window_host"] = host_shares
     if density is not None:

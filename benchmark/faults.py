@@ -59,5 +59,51 @@ def answer_altered():
         program.Renderer.view = view
 
 
+@contextlib.contextmanager
+def densify_skipped():
+    """Each density-control event returns the state as it found it, with the
+    counts of the event that it did not keep."""
+    densify = program.densify_and_prune
+
+    def skipped(state, **kwargs):
+        kept = program.snapshot(state)
+        state, info = densify(state, **kwargs)
+        dev = state.alive.device
+        with torch.no_grad():
+            for g in state.optimizer.param_groups:
+                p = g["params"][0]
+                p.copy_(kept["params"][g["name"]].to(dev))
+                for name, m in kept["moments"].get(g["name"], {}).items():
+                    state.optimizer.state[p][name].copy_(m.to(dev))
+        state.alive = kept["alive"].to(dev)
+        for name, v in kept["stats"].items():
+            setattr(state.stats, name, v.to(dev))
+        return state, info
+
+    program.densify_and_prune = skipped
+    try:
+        yield
+    finally:
+        program.densify_and_prune = densify
+
+
+@contextlib.contextmanager
+def split_unsampled():
+    """Each density-control event places its split samples at their
+    parent's centre: the split noise zeroed."""
+    densify = program.densify_and_prune
+
+    def unsampled(state, *, n_split=2, generator=None, noise=None, **kwargs):
+        zeros = torch.zeros((n_split, state.alive.shape[0], 3), device=state.alive.device)
+        return densify(state, n_split=n_split, noise=zeros, **kwargs)
+
+    program.densify_and_prune = unsampled
+    try:
+        yield
+    finally:
+        program.densify_and_prune = densify
+
+
 PRECISION_CONTROL = {"attr_precision": "bf16", "grad_precision": "bf16"}
-FAULTS = {"unchanged": state_unchanged, "half": half_batch, "answer": answer_altered}
+FAULTS = {"unchanged": state_unchanged, "half": half_batch, "answer": answer_altered,
+          "densify_skipped": densify_skipped, "split_unsampled": split_unsampled}

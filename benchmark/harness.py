@@ -10,7 +10,8 @@ make its own parameters in a buffer of more rows than are alive, with their
 mask, and derive its learning rates (`scenes`); its program file may give
 the model state's constants (`program`); and a training traffic may switch
 on density control on `apps/train`'s schedule ("density_control",
-`drivers/train.py`).
+`drivers/train.py`), whose first event is checked against the plain
+reference: its limits file then holds `drivers.train.DENSITY_NUMBERS`.
 
 A run builds its inputs from the seed (`scenes`), and the driver runs the
 program (`program`) through set-up, the checked first steps or views and a
@@ -34,6 +35,7 @@ import torch
 
 from . import program, scenes
 from .drivers import sync
+from .drivers.train import DENSITY_NUMBERS
 
 BENCH_DIR = os.path.basename(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "gaussian_mesh_splatting_tpu")
@@ -61,11 +63,15 @@ def load_cell(root: str, workload: str) -> dict:
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"]
                  if (workload in m["workloads"] if "workloads" in m else m["moves"] in reported)]
+    traffic = _json(root, BENCH_DIR, "traffic", f"{cell['traffic']}.json")
+    limits = _json(root, BENCH_DIR, "limits", f"{workload}.json")
+    missing = [k for k in DENSITY_NUMBERS if k not in limits]
+    if traffic.get("density_control") and missing:
+        raise ValueError(f"{workload}: a traffic with density_control needs the limits of "
+                         f"its checked event; limits/{workload}.json lacks {missing}")
     return {"cell": cell, "root": root, "trace_dir": os.path.join(root, "build", BENCH_DIR),
             "config": _json(root, BENCH_DIR, "configs", f"{cell['config']}.json"),
-            "traffic": _json(root, BENCH_DIR, "traffic", f"{cell['traffic']}.json"),
-            "limits": _json(root, BENCH_DIR, "limits", f"{workload}.json"),
-            "end_to_end": e2e, "per_layer": per_layer}
+            "traffic": traffic, "limits": limits, "end_to_end": e2e, "per_layer": per_layer}
 
 
 def load_driver(name: str):

@@ -71,6 +71,47 @@ def density_events(cfg, it: int, white_background: bool) -> tuple[bool, bool]:
     return densify, reset
 
 
+# the split samples a split row gives: `densify_and_prune`'s default, which
+# `apps/train` keeps
+N_SPLIT = 2
+
+
+def density_event(state, plan: dict, generator: torch.Generator | None = None, noise=None):
+    """(state, counts) of one density-control event as `apps/train` runs it:
+    `densify_and_prune(**plan["densify"])` where that is not None, its
+    counts read to the host in one read, then `reset_opacity` where
+    `plan["reset"]` ("opacity_reset" 1 among the counts); empty counts where
+    nothing ran."""
+    event = {}
+    if plan["densify"] is not None:
+        state, info = densify_and_prune(state, **plan["densify"], generator=generator,
+                                        noise=noise)
+        event = dict(zip(info, torch.stack(list(info.values())).tolist()))
+    if plan["reset"]:
+        state = reset_opacity(state)
+        event["opacity_reset"] = 1
+    return state, event
+
+
+def snapshot(state) -> dict:
+    """A copy of what a density-control event reads and writes: "params"
+    (each group's tensor), "alive", "stats" ("grad_accum", "denom",
+    "max_radii"), "moments" (each group's "exp_avg" and "exp_avg_sq",
+    where it has taken a step) and "step", the tensors on the host."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    opt = state.optimizer
+    groups = {g["name"]: g["params"][0] for g in opt.param_groups}
+    return {"params": {k: host(p) for k, p in groups.items()},
+            "alive": host(state.alive),
+            "stats": {k: host(getattr(state.stats, k))
+                      for k in ("grad_accum", "denom", "max_radii")},
+            "moments": {k: {m: host(opt.state[p][m]) for m in ("exp_avg", "exp_avg_sq")}
+                        for k, p in groups.items() if "exp_avg" in opt.state.get(p, {})},
+            "step": state.step}
+
+
 class Trainer:
     """The port's training state and step. `render_kwargs` go to the
     rasterizer (the precision modes of a control run); `mark` is the step's
@@ -103,34 +144,45 @@ class Trainer:
         _, metrics = self.step_fn(self.state, self.cams[i], self.scene.gt[i], self.scene.bg)
         return metrics["loss"]
 
+    def density_plan(self) -> dict:
+        """What density control does after step `state.step`, as `apps/train`
+        schedules it: "densify", `densify_and_prune`'s keyword arguments as
+        `apps/train` passes them, or None where it does not run; "reset",
+        whether the opacity is reset after it."""
+        if self.density is None:
+            return {"densify": None, "reset": False}
+        cfg = self.density
+        densify, reset = density_events(cfg, self.state.step, self.white_background)
+        args = None
+        if densify:
+            args = dict(grad_threshold=cfg.densify_grad_threshold, min_opacity=cfg.min_opacity,
+                        extent=self.scene.cameras_extent, percent_dense=cfg.percent_dense,
+                        # screen/world-size pruning starts after the first opacity reset
+                        size_threshold=20.0 if self.state.step > cfg.opacity_reset_interval
+                        else 0.0,
+                        scaling_cols=self.state.params["scaling"].shape[1], n_split=N_SPLIT)
+        return {"densify": args, "reset": reset}
+
     def density_due(self) -> bool:
         """Whether density control acts after step `state.step`."""
         return self.density is not None and any(
             density_events(self.density, self.state.step, self.white_background))
 
-    def density_control(self, generator: torch.Generator) -> dict:
-        """Density control after step `state.step`, as `apps/train` runs it:
-        `train/densify.densify_and_prune` with its arguments (`generator`
-        draws the split samples), its counts read to the host in one read,
-        then `reset_opacity`. The counts of what ran ("opacity_reset" 1
-        where the opacity was reset); empty where nothing did."""
+    def steps_to_density(self) -> int | None:
+        """How many steps from `state.step` on until the first step after
+        which density control acts; None where none does."""
         if self.density is None:
-            return {}
-        cfg = self.density
-        densify, reset = density_events(cfg, self.state.step, self.white_background)
-        event = {}
-        if densify:
-            self.state, info = densify_and_prune(
-                self.state, grad_threshold=cfg.densify_grad_threshold,
-                min_opacity=cfg.min_opacity, extent=self.scene.cameras_extent,
-                percent_dense=cfg.percent_dense,
-                # screen/world-size pruning starts after the first opacity reset
-                size_threshold=20.0 if self.state.step > cfg.opacity_reset_interval else 0.0,
-                scaling_cols=self.state.params["scaling"].shape[1], generator=generator)
-            event = dict(zip(info, torch.stack(list(info.values())).tolist()))
-        if reset:
-            self.state = reset_opacity(self.state)
-            event["opacity_reset"] = 1
+            return None
+        return next((it - self.state.step
+                     for it in range(self.state.step + 1, self.density.densify_until_iter)
+                     if any(density_events(self.density, it, self.white_background))), None)
+
+    def density_control(self, generator: torch.Generator | None = None, noise=None) -> dict:
+        """Density control after step `state.step`, as `apps/train` runs it
+        (`density_plan`): `densify_and_prune`, its split samples' noise
+        `noise` where given, else drawn from `generator`, then
+        `reset_opacity`. The counts of what ran; empty where nothing did."""
+        self.state, event = density_event(self.state, self.density_plan(), generator, noise)
         return event
 
     def params(self) -> dict:

@@ -1,8 +1,9 @@
 """The harness on the CPU at tiny sizes (`tiny.py`): cells, configurations,
-metrics, model kinds (on a mesh or not, densifying in the window) and
-drivers found by name, the result line's layout, `correct` false under
-each planted fault and under the precision control, the refusal without a
-card, and no JAX anywhere in what the harness loads."""
+metrics, model kinds (on a mesh or not, densifying in the window, its first
+density-control event checked and each window event timed) and drivers
+found by name, the result line's layout, `correct` false under each planted
+fault and under the precision control, the refusal without a card, and no
+JAX anywhere in what the harness loads."""
 import ast
 import glob
 import json
@@ -13,9 +14,10 @@ import time
 
 import pytest
 
-from benchmark import faults, harness, program
+from benchmark import faults, harness, program, tracing
 from benchmark.control import readings
-from benchmark.tests.tiny import BENCH, ROOT, make_copy
+from benchmark.drivers import train as train_driver
+from benchmark.tests.tiny import BENCH, DENSITY_LIMITS, ROOT, make_copy
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
@@ -84,10 +86,20 @@ def test_new_files_are_found_by_name(tiny):
                                         ("tiny_mesh.train", "half"),
                                         ("tiny_flame.train", "unchanged"),
                                         ("tiny_flame.train", "half"),
-                                        ("tiny_mesh.render", "answer")])
-def test_a_planted_fault_is_not_correct(tiny, cell, fault):
-    with faults.FAULTS[fault]():
-        result, _ = run(tiny, cell, seconds=3.0 if cell.endswith("render") else 0.5)
+                                        ("tiny_mesh.render", "answer"),
+                                        ("tiny_padded.train", "densify_skipped"),
+                                        ("tiny_padded.train", "split_unsampled")])
+def test_a_planted_fault_is_not_correct(tiny, request, cell, fault):
+    if cell.startswith("tiny_padded"):
+        # the densifying kind's files are in the copy alone: run it from there;
+        # its checked density-control event is what fails
+        (run_,) = run_copy(request.getfixturevalue("padded")["root"], [(cell, False, 0.5)], fault)
+        result = run_["result"]
+        failed = {k for k, v in result["checks"].items() if not v["value"] <= v["limit"]}
+        assert failed and failed <= set(DENSITY_LIMITS), run_["lines"][-8:]
+    else:
+        with faults.FAULTS[fault]():
+            result, _ = run(tiny, cell, seconds=3.0 if cell.endswith("render") else 0.5)
     assert result["correct"] is False
 
 
@@ -202,11 +214,12 @@ def test_new_model_kind_and_driver_are_found_by_name(tiny):
 
 
 PADDED_KIND = {
-    "scenes": '''"""A kind not on a mesh: vanilla 3DGS from points in a cube, in a buffer
-of more rows than points (the rest dead, padded as the port pads them). All
-but `bright` points start under the pruning opacity, so that the live rows
-grow by doubling from `bright` and the buffer fills only after a few
-density-control events."""
+    "scenes": '''"""A kind not on a mesh: vanilla 3DGS from points in a cube, turned at
+random, in a buffer of more rows than points (the rest dead, padded as the
+port pads them). All but `bright` points start under the pruning opacity,
+so that the live rows grow by doubling from `bright` and the buffer fills
+only after a few density-control events; half the bright ones are a
+quarter of the size of the rest, under the split's limit."""
 import math
 
 import torch
@@ -226,8 +239,9 @@ def gaussians(config, traffic, gen, dev):
             "f_rest": torch.zeros((n, k - 1, 3), device=dev),
             "opacity": torch.full((n, 1), math.log(0.001 / 0.999), device=dev),
             "scaling": torch.full((n, 3), math.log(config["scale"]), device=dev),
-            "rotation": torch.nn.functional.pad(torch.ones((n, 1), device=dev), (0, 3))}
+            "rotation": torch.randn((n, 4), generator=gen, device=dev)}
     live["opacity"][:config["bright"]] = math.log(0.1 / 0.9)
+    live["scaling"][:config["bright"] // 2] = math.log(config["scale"] / 4)
     params = {key: torch.cat([v, v.new_zeros((rows - n, *v.shape[1:]))]) for key, v in live.items()}
     params["rotation"][n:, 0] = 1.0
     params["scaling"][n:] = -10.0
@@ -289,14 +303,14 @@ def _files(root: str) -> dict:
     return out
 
 
-def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
-    """A kind whose Gaussians are not on a mesh (its own parameters in a
-    buffer of 4x the rows, an alive mask, a learning-rate schedule on the
-    cameras' extent) and a traffic that densifies inside the window, added
-    as new files and entries in BENCHMARK.json only: its train cell (trace
-    off and on) and render cell run `correct` from the copy, the window
-    densifies, the traced samples count their snapshot's live rows, and
-    every file that was there is byte-equal afterwards."""
+@pytest.fixture(scope="module")
+def padded(tiny):
+    """The tiny copy with a kind whose Gaussians are not on a mesh (its own
+    parameters in a buffer of 4x the rows, an alive mask, a learning-rate
+    schedule on the cameras' extent) and a traffic that densifies inside
+    the window, added as new files and entries in BENCHMARK.json only:
+    {"root", "before": every file's bytes before, "spec": BENCHMARK.json
+    before}."""
     bench = os.path.join(tiny, os.path.basename(BENCH))
     before = _files(tiny)
     for role, source in PADDED_KIND.items():
@@ -324,9 +338,9 @@ def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
                        sample_launches=[0, 3, 6, 9])
     with open(os.path.join(bench, "traffic", "train_views_densify.json"), "w") as f:
         json.dump(traffic, f)
-    limits = {"train": {"loss_gap": 1e-4, "grad1_elem_median": 1e-3,
-                        "grad1_norm_median_gap": 1e-3, "change3_median_gap": 1e-3,
-                        "change3_norm_gap": 1e-3},
+    limits = {"train": dict({"loss_gap": 1e-4, "grad1_elem_median": 1e-3,
+                             "grad1_norm_median_gap": 1e-3, "change3_median_gap": 1e-3,
+                             "change3_norm_gap": 1e-3}, **DENSITY_LIMITS),
               "render": {"image_mean_gap": 1e-4}}
     for kind, limit in limits.items():
         with open(os.path.join(bench, "limits", f"tiny_padded.{kind}.json"), "w") as f:
@@ -349,29 +363,73 @@ def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
                 m["workloads"].append(cell)
     with open(path, "w") as f:
         json.dump(spec, f)
+    return {"root": tiny, "before": before, "spec": old}
 
-    code = ("import sys, json, time; sys.path[:0] = [%r, %r]\n"
+
+def run_copy(root: str, runs: list, fault: str | None = None) -> list:
+    """Each (cell, trace, seconds) of `runs` from the copy at `root`, in one
+    process (under the planted fault `fault`): its result, its lines for
+    standard error and, of its driver's ctx, "density_ms",
+    "density_events" and the keys of "stage_ms" where present."""
+    code = ("import sys, json, time, contextlib; sys.path[:0] = [%r, %r]\n"
             "import torch; torch.set_num_threads(1)\n"
-            "from benchmark import harness\n"
+            "from benchmark import faults, harness\n"
+            "from benchmark.drivers import train\n"
             "assert harness.__file__.startswith(%r), harness.__file__\n"
-            "for cell, trace, seconds in [('tiny_padded.train', False, 3.0),\n"
-            "                             ('tiny_padded.train', True, 3.0),\n"
-            "                             ('tiny_padded.render', False, 3.0)]:\n"
-            "    r, lines = harness.run_cell(%r, cell, 2**31 + 23, seconds, trace, 'cpu',\n"
-            "                                time.perf_counter())\n"
-            "    print(json.dumps({'result': r, 'lines': lines}))\n") % (tiny, ROOT, tiny, tiny)
+            "ctxs, run = [], train.run\n"
+            "def kept(*a):\n"
+            "    out = run(*a)\n"
+            "    ctxs.append(out['ctx'])\n"
+            "    return out\n"
+            "train.run = kept\n"
+            "fault = %r\n"
+            "for cell, trace, seconds in %r:\n"
+            "    ctxs.clear()\n"
+            "    with faults.FAULTS[fault]() if fault else contextlib.nullcontext():\n"
+            "        r, lines = harness.run_cell(%r, cell, 2**31 + 23, seconds, trace, 'cpu',\n"
+            "                                    time.perf_counter())\n"
+            "    ctx = {k: ctxs[0][k] for k in ('density_ms', 'density_events')\n"
+            "           if ctxs and k in ctxs[0]}\n"
+            "    if ctxs and 'stage_ms' in ctxs[0]:\n"
+            "        ctx['stage_keys'] = list(ctxs[0]['stage_ms'])\n"
+            "    print(json.dumps({'result': r, 'lines': lines, 'ctx': ctx}))\n"
+            ) % (root, ROOT, root, fault, runs, root)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=900, cwd=tiny, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+                          timeout=900, cwd=root, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    runs = [json.loads(line) for line in proc.stdout.strip().splitlines()[-3:]]
+    return [json.loads(line) for line in proc.stdout.strip().splitlines()[-len(runs):]]
+
+
+def _diagnostics(run_: dict) -> dict:
+    return json.loads(next(l for l in run_["lines"] if l.startswith("diagnostics "))[12:])
+
+
+def test_kind_off_mesh_that_densifies_is_added_as_files(padded):
+    """The kind off the mesh and its densifying traffic (`padded`), added as
+    files only: its train cell (trace off and on) and render cell run
+    `correct` from the copy, the first density-control event is checked
+    against the plain reference, the window densifies and each window
+    event is timed, the traced stretch books the events' idle time as
+    "densify", the traced samples count their snapshot's live rows, and
+    every file that was there is byte-equal afterwards."""
+    tiny = padded["root"]
+    runs = run_copy(tiny, [("tiny_padded.train", False, 3.0), ("tiny_padded.train", True, 3.0),
+                           ("tiny_padded.render", False, 3.0)])
     for run_ in runs:
         assert run_["result"]["correct"] is True, run_["lines"][-6:]
     assert "train_step_ms" in runs[0]["result"]["metrics"]
     assert "step_mfu.train" in runs[1]["result"]["metrics"]
     assert set(runs[2]["result"]["metrics"]) == {"render_views_per_s", "render_ms_p95", "setup_s"}
+    for run_ in runs[:2]:
+        checks = run_["result"]["checks"]
+        assert {k: checks[k]["limit"] for k in DENSITY_LIMITS} == DENSITY_LIMITS
+        checked = _diagnostics(run_)["density_check"]
+        assert checked["counts"] == checked["reference_counts"]
+        # the checked event clones or splits, and prunes
+        assert checked["counts"]["n_clone"] + checked["counts"]["n_split_rows"] > 0
+        assert checked["counts"]["n_pruned"] > 0
 
-    diags = [json.loads(next(l for l in r["lines"] if l.startswith("diagnostics "))[12:])
-             for r in runs[:2]]
+    diags = [_diagnostics(r) for r in runs[:2]]
     for diag in diags:
         events = diag["density_events"]
         # the checked steps 601-603 pass no event; warm-up step 604 densifies
@@ -379,6 +437,13 @@ def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
         assert sum(e["stretch"] == "window" for e in events) >= 2
         assert diag["alive_at_setup"] == 150
         assert any(e["n_alive"] != 150 for e in events), events
+    # each window event of the traced run is timed, in the window's order
+    ctx = runs[1]["ctx"]
+    window = [e for e in diags[1]["density_events"] if e["stretch"] == "window"]
+    assert ctx["density_events"] == window
+    assert len(ctx["density_ms"]) == len(window) and all(ms > 0 for ms in ctx["density_ms"])
+    assert "densify" in dict(runs[1]["result"]["breakdown"]["idle_gaps"])
+    assert "density_ms" not in runs[0]["ctx"]
     # each sampled step of the traced stretch counts the live rows of its own
     # snapshot: those of the last event before it
     diag = diags[1]
@@ -391,16 +456,62 @@ def test_kind_off_mesh_that_densifies_is_added_as_files(tiny):
     assert any(live not in (150, 600) for _, _, live in diag["sampled_rows"])
 
     after = _files(tiny)
-    changed = [p for p, data in before.items() if p != "BENCHMARK.json" and after[p] != data]
+    changed = [p for p, data in padded["before"].items()
+               if p != "BENCHMARK.json" and after[p] != data]
     assert changed == []
-    with open(path) as f:
+    with open(os.path.join(tiny, "BENCHMARK.json")) as f:
         now = json.load(f)
+    old = padded["spec"]
     for key in ("configs", "workloads", "end_to_end", "per_layer"):
         for was, is_ in zip(old[key], now[key]):
             assert {k: v for k, v in is_.items() if k != "workloads"} == \
                 {k: v for k, v in was.items() if k != "workloads"}
             assert is_.get("workloads", [])[:len(was.get("workloads", []))] == \
                 was.get("workloads", [])
+
+
+def test_density_control_needs_its_limits(padded):
+    """A traffic with density_control whose limits file lacks the checked
+    event's numbers is refused at load."""
+    bench = os.path.join(padded["root"], os.path.basename(BENCH))
+    with open(os.path.join(bench, "limits", "tiny_padded.train.json")) as f:
+        limits = {k: v for k, v in json.load(f).items() if k != "density_param_gap"}
+    with open(os.path.join(bench, "limits", "tiny_padded_nolimit.train.json"), "w") as f:
+        json.dump(limits, f)
+    path = os.path.join(padded["root"], "BENCHMARK.json")
+    with open(path) as f:
+        spec = json.load(f)
+    spec["workloads"].append({"name": "tiny_padded_nolimit.train", "config": "tiny_padded",
+                              "traffic": "train_views_densify", "chips": 1, "why": "no limit"})
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    with pytest.raises(ValueError, match="density_param_gap"):
+        harness.load_cell(padded["root"], "tiny_padded_nolimit.train")
+    assert harness.load_cell(padded["root"], "tiny_padded.train")["limits"]["density_param_gap"] \
+        == DENSITY_LIMITS["density_param_gap"]
+
+
+def test_mesh_cells_have_no_density_timing(tiny, monkeypatch):
+    """A traced mesh cell, which runs no density control, records no
+    density-control event: its ctx has no "density_ms" nor
+    "density_events", its stages are `tracing.STAGES`, and no idle gap is
+    booked as "densify"."""
+    ctxs, driver = [], train_driver.run
+
+    def kept(*a):
+        out = driver(*a)
+        ctxs.append(out["ctx"])
+        return out
+
+    monkeypatch.setattr(train_driver, "run", kept)
+    for cell in ("tiny_mesh.train", "tiny_flame.train"):
+        ctxs.clear()
+        result, _ = run(tiny, cell, trace=True)
+        (ctx,) = ctxs
+        assert "density_ms" not in ctx and "density_events" not in ctx
+        assert tuple(ctx["stage_ms"]) == tracing.STAGES
+        assert "densify" not in dict(result["breakdown"]["idle_gaps"])
+        assert not set(result["checks"]) & set(DENSITY_LIMITS)
 
 
 @pytest.mark.parametrize("it, white, want", [

@@ -2,12 +2,14 @@
 
 Stage times come from CUDA events that the train step's `mark` hook
 records at each stage boundary, over steps that no profiler slows
-(`StageMarks`). The device's busy share, the kernels' times and the
-breakdown come from a later stretch under `torch.profiler` that records
-device activity alone (`Profiled`): no CPU activity, so that the host runs
-at its own speed. The stretch's idle gaps are put down to what the host was
-doing by the boundaries it recorded as CUDA events (`Boundaries`), placed
-on the trace's clock by a marker launched at the first of them.
+(`StageMarks`); a density-control event's time from two more, which the
+driver records around it (`StageMarks.density`). The device's busy share,
+the kernels' times and the breakdown come from a later stretch under
+`torch.profiler` that records device activity alone (`Profiled`): no CPU
+activity, so that the host runs at its own speed. The stretch's idle gaps
+are put down to what the host was doing by the boundaries it recorded as
+CUDA events (`Boundaries`), placed on the trace's clock by a marker
+launched at the first of them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 STAGES = ("to_bag", "render", "loss", "backward", "adam", "stats")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 BETWEEN = "between"  # the host outside every labelled part
+DENSIFY = "densify"  # a density-control event, its host read of the counts included
 # the longest profiled stretch of a traced run: what it gives are times and
 # shares a step or view, which a longer stretch does not change, while the
 # trace to reduce grows with it
@@ -37,40 +40,47 @@ class Boundaries:
         self.marks: list = []
 
     def record(self, label: str) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-        else:
-            event = time.perf_counter()
-        self.marks.append((label, event))
+        self.marks.append((label, _now(self.cuda)))
 
     def offsets_us(self) -> list:
         """[(label, microseconds after the first boundary)] (the events must
         have completed)."""
         first = self.marks[0][1]
-        return [(label, 1e3 * first.elapsed_time(ev) if self.cuda else 1e6 * (ev - first))
-                for label, ev in self.marks]
+        return [(label, 1e3 * _elapsed_ms(first, ev, self.cuda)) for label, ev in self.marks]
+
+
+def _now(cuda: bool):
+    """A CUDA event recorded on the current stream, or in a CPU rehearsal the
+    host clock."""
+    if not cuda:
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _elapsed_ms(a, b, cuda: bool) -> float:
+    """Milliseconds from `_now` reading a to b (the events must have
+    completed)."""
+    return a.elapsed_time(b) if cuda else 1e3 * (b - a)
 
 
 class StageMarks:
     """`mark` hook of `make_train_step`: a CUDA event at each stage boundary
     of each step, and, while `timeline` is set, the same boundaries in it
-    (labelled with the stage that starts there)."""
+    (labelled with the stage that starts there). `density` marks a
+    density-control event alike."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.steps: list[dict] = []
+        self.events: list[dict] = []  # each density-control event's "start" and "end"
         self.timeline: Boundaries | None = None
 
     def __call__(self, stage: str) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-        else:  # a CPU rehearsal: the host clock
-            event = time.perf_counter()
         if stage == "start":
             self.steps.append({})
-        self.steps[-1][stage] = event
+        self.steps[-1][stage] = _now(self.cuda)
         if self.timeline is not None:
             following = (STAGES[0] if stage == "start" else BETWEEN if stage == STAGES[-1]
                          else STAGES[STAGES.index(stage) + 1])
@@ -83,9 +93,25 @@ class StageMarks:
         for ev in self.steps[first:last]:
             prev = ev["start"]
             for s in STAGES:
-                out[s].append(prev.elapsed_time(ev[s]) if self.cuda else 1e3 * (ev[s] - prev))
+                out[s].append(_elapsed_ms(prev, ev[s], self.cuda))
                 prev = ev[s]
         return out
+
+    def density(self, edge: str) -> None:
+        """`density("start")` just before a density-control event and
+        `density("end")` just after it: a CUDA event each, and, while
+        `timeline` is set, the boundary DENSIFY before it and BETWEEN after
+        it."""
+        if edge == "start":
+            self.events.append({})
+        self.events[-1][edge] = _now(self.cuda)
+        if self.timeline is not None:
+            self.timeline.record(DENSIFY if edge == "start" else BETWEEN)
+
+    def density_ms(self, first: int, last: int) -> list:
+        """The device-timeline milliseconds of density-control events
+        first..last-1 (the events must have completed)."""
+        return [_elapsed_ms(ev["start"], ev["end"], self.cuda) for ev in self.events[first:last]]
 
 
 class Profiled:
