@@ -167,10 +167,22 @@ Phases (any failure exits nonzero; nothing is caught):
      chain's time;
      their launches on apps.render and on PROJECT_STEPS steps of each
      training path, with the tracer's `project_kernel` count a step;
- 13. print the kernels line (with each kernel's launches on the render path,
+ 13. the loss kernels (`loss_kernels`, csrc/loss.cu) at 800x800 on a
+     seeded image pair, the same with white rows and tied entries, and the
+     gs_mesh student's first render against its GT, and at the ragged sizes
+     LOSS_RAGGED: L1's SSIM map bit-equal to `ssim_map`'s, `total` and `l1`
+     within LOSS_REL_TOL of the chain's; L2 on three sets of cotangents
+     within LOSS_PLAIN_TOL x max|g| of `photometric_vjp_plain`, its distances
+     from autograd of the chain in float32 and float64 reported; both
+     kernels repeat their bits; at 800x800 each kernel's time alone (median
+     of 20, and queued) beside its bound from the bytes and the chain's
+     times; their launches on LOSS_STEPS steps of the gs_mesh and gs_flame
+     training paths, with the tracer's `loss_kernel` count a step;
+ 14. print the kernels line (with each kernel's launches on the render path,
      on each training path, `apps.render_flame`, each path of phase 7 (per
-     rank: phase 8) and phases 9 to 11; the projection kernels' from phase 12,
-     its times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
+     rank: phase 8) and phases 9 to 11; the projection kernels' from phase 12
+     and the loss kernels' from phase 13, their times and bounds; B1's and
+     B2's times and bounds at the `gs_mesh`, the `gs` and the `gs_flame`
      inputs, each bound from the operations that this run's data needs,
      each radius mode's pairs and times, and the bf16 table's times, bounds
      and errors), the card's name and power limit, and last the device
@@ -3155,6 +3167,242 @@ def projection_line(phase12: dict) -> list:
     return entries
 
 
+
+# ---- phase 13: the loss kernels (csrc/loss.cu) -------------------------------
+
+LOSS_LAMBDA = 0.2  # the training loss's lambda_dssim
+LOSS_PLAIN_TOL = 1e-6  # x max|g|: L2 against `photometric_vjp_plain`
+LOSS_REL_TOL = 1e-6  # total and l1 against the chain's, relative
+LOSS_RAGGED = ((797, 803), (37, 53), (7, 9))  # ragged tiles, rows of 3W % 4 != 0; under the window
+LOSS_STEPS = 5  # training steps a path, for the launch counts
+
+
+def loss_bytes(h: int, w: int) -> dict:
+    """Bytes the loss kernels must move over an (h, w, 3) float32 pair,
+    each read or written once: L1 reads the two images and writes the three
+    derivative maps; L2 reads the maps and the images and writes the
+    gradient."""
+    image = 4 * h * w * 3
+    return {"fwd_bytes": 5 * image, "bwd_bytes": 6 * image}
+
+
+def loss_pairs(shape, dev, seed: int) -> dict:
+    """Seeded (H, W, 3) pairs in [0, 1]: "random", and "ties", where a third
+    of the rows are white in both images and a third of the other entries
+    of the target equal the prediction's (sgn(0) = 0 in the VJP)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    pred, gt = (torch.rand(*shape, 3, generator=gen) for _ in range(2))
+    tied_pred, tied_gt = pred.clone(), gt.clone()
+    tie = torch.rand(*shape, 3, generator=gen) < 1 / 3
+    tied_gt[tie] = tied_pred[tie]
+    tied_pred[: shape[0] // 3] = 1.0
+    tied_gt[: shape[0] // 3] = 1.0
+    return {"random": (pred.to(dev), gt.to(dev)), "ties": (tied_pred.to(dev), tied_gt.to(dev))}
+
+
+def kernel_device_ms(fn, reps: int) -> dict:
+    """Each CUDA kernel's device ms a call of `fn`, from torch.profiler
+    (CUPTI) over `reps` calls after a warm-up, by kernel name."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = us * 1e-3 / reps
+    return out
+
+
+def check_loss(label: str, pred, gt, time_it: bool) -> dict:
+    """The loss kernels against the chain on one image pair: L1's SSIM map
+    bit-equal to `ssim_map`'s, `total` and `l1` within LOSS_REL_TOL of the
+    chain's (`photometric_loss_chain`); L2 on the cotangents (g_total, none),
+    (g_total, g_l1) and (none, g_l1) within LOSS_PLAIN_TOL x max|g| of
+    `photometric_vjp_plain`, its distances from autograd of the chain in
+    float32 and float64 reported; a second run of both kernels the same
+    bits. With `time_it`, each kernel alone (median of 20, queued, and its
+    kernels' device time from the profiler) beside its bound from the
+    bytes, the chain's forward and forward + backward, the Function's
+    forward + backward and the plain VJP."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.ops import ssim as S
+    from gaussian_mesh_splatting_tpu_torch.train.loss import photometric_loss_chain
+
+    lam = LOSS_LAMBDA
+    h, w, _ = pred.shape
+    runs = [S.photometric_fwd_cuda(pred, gt, lam, with_map=True) for _ in range(2)]
+    total, l1, maps, smap = runs[0]
+    with torch.no_grad():
+        want_map = S.ssim_map(pred, gt)
+        want_total, want_l1 = photometric_loss_chain(pred, gt, lam)
+    res = {"shape": [h, w], "map_bits_differing": bit_mismatches(smap, want_map),
+           "total_rel_err": abs(float(total) - float(want_total)) / abs(float(want_total)),
+           "l1_rel_err": abs(float(l1) - float(want_l1)) / abs(float(want_l1)),
+           "total": float(total), "l1": float(l1),
+           "repeat_bits_differing": sum(bit_mismatches(a, b) for a, b in zip(*runs)),
+           "vjp": {}}
+    one = torch.ones((), device=pred.device)
+    for case, cots in (("total", (one, None)), ("total_l1", (one, 0.37 * one)),
+                       ("l1", (None, 0.37 * one))):
+        grads = [S.photometric_bwd_cuda(pred, gt, maps, lam, *cots) for _ in range(2)]
+        plain = S.photometric_vjp_plain(pred, gt, lam, *cots)
+
+        def autograd(dtype):
+            leaf = pred.detach().to(dtype).requires_grad_()
+            outs = photometric_loss_chain(leaf, gt.to(dtype), lam)
+            outs, cs = zip(*[(o, c.to(dtype)) for o, c in zip(outs, cots) if c is not None])
+            return torch.autograd.grad(outs, leaf, cs)[0]
+
+        ref32, ref64 = autograd(torch.float32), autograd(torch.float64)
+        scale = float(ref64.abs().max())
+
+        def err(a, b):
+            return float((a.double() - b.double()).abs().max()) / scale
+
+        res["vjp"][case] = {
+            "vs_plain": err(grads[0], plain), "bits_vs_plain": bit_mismatches(grads[0], plain),
+            "vs_autograd": err(grads[0], ref32), "vs_f64": err(grads[0], ref64),
+            "autograd_vs_f64": err(ref32, ref64),
+            "repeat_bits_differing": bit_mismatches(grads[0], grads[1])}
+    log(f"[13] {label} {h}x{w}: {json.dumps(res)}")
+    if res["map_bits_differing"] or res["repeat_bits_differing"]:
+        raise SystemExit(f"{label}: L1's map is not bit-equal to the chain's, or not repeatable")
+    if max(res["total_rel_err"], res["l1_rel_err"]) > LOSS_REL_TOL:
+        raise SystemExit(f"{label}: L1's total or l1 is off the chain's: {res}")
+    for case, e in res["vjp"].items():
+        if e["vs_plain"] > LOSS_PLAIN_TOL or e["repeat_bits_differing"]:
+            raise SystemExit(f"{label} {case}: L2 is off its plain version, or not repeatable: {e}")
+    if time_it:
+        nbytes = loss_bytes(h, w)
+        fwd_bound, bwd_bound = (bytes_and_bound(0, nbytes[k]) for k in ("fwd_bytes", "bwd_bytes"))
+        fwd = lambda: S.photometric_fwd_cuda(pred, gt, lam)  # noqa: E731
+        bwd = lambda: S.photometric_bwd_cuda(pred, gt, maps, lam, one)  # noqa: E731
+        leaf = pred.detach().clone().requires_grad_()
+        with torch.no_grad():
+            res["times"] = {
+                "fwd_ms": cuda_ms(fwd, reps=20), "fwd_queued_ms": cuda_ms_queued(fwd, reps=100),
+                "fwd_bound_ms": fwd_bound["bound_ms"], "fwd_bytes": nbytes["fwd_bytes"],
+                "bwd_ms": cuda_ms(bwd, reps=20), "bwd_queued_ms": cuda_ms_queued(bwd, reps=100),
+                "bwd_bound_ms": bwd_bound["bound_ms"], "bwd_bytes": nbytes["bwd_bytes"],
+                "chain_fwd_ms": cuda_ms(lambda: photometric_loss_chain(pred, gt, lam), reps=10),
+                "plain_bwd_ms": cuda_ms(lambda: S.photometric_vjp_plain(pred, gt, lam, one),
+                                        reps=10),
+            }
+        res["times"]["chain_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            photometric_loss_chain(leaf, gt, lam)[0], leaf), reps=10)
+        res["times"]["kernels_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            S.photometric_loss_cuda(leaf, gt, lam)[0], leaf), reps=20)
+        device = {**kernel_device_ms(fwd, reps=50), **kernel_device_ms(bwd, reps=50)}
+        res["times"]["device_ms"] = {k: v for k, v in device.items() if "loss_" in k}
+        res["times"]["fwd_device_ms"] = sum(v for k, v in device.items()
+                                            if "loss_fwd" in k or "loss_reduce" in k)
+        res["times"]["bwd_device_ms"] = sum(v for k, v in device.items() if "loss_bwd" in k)
+        log(f"     times (ms; bound from the bytes at 3.35 TB/s): {json.dumps(res['times'])}")
+    return res
+
+
+def loss_kernels(ns, dev) -> dict:
+    """Phase 13: the loss kernels at 800x800 (a seeded pair, the same with
+    white rows and tied entries, and the gs_mesh student's first render
+    against its GT), timed, and at the LOSS_RAGGED sizes; then their launches
+    on LOSS_STEPS steps of the gs_mesh and gs_flame training paths through
+    `make_train_step`, under the port's tracer (`loss_kernel` 1 a step).
+    Returns the phase's numbers."""
+    import torch
+
+    from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.ops import ssim as S
+    from gaussian_mesh_splatting_tpu_torch.renderer import render
+    from gaussian_mesh_splatting_tpu_torch.train import (
+        make_train_state, make_train_step, optimization_config)
+    from gaussian_mesh_splatting_tpu_torch.utils.profiling import Recording, tracing
+
+    white = torch.ones(3, device=dev)
+    cam0, gt0 = ns.scene.train_cameras[0]
+    gt0 = torch.as_tensor(gt0, device=dev)
+    with torch.no_grad():
+        student = render(ns.student_bag, cam0, white, sh_degree=SH_DEGREE).image.contiguous()
+    cases = {f"{SIZE}_{k}": check_loss(f"{SIZE}x{SIZE} {k}", *pair, True)
+             for k, pair in loss_pairs((SIZE, SIZE), dev, 13).items()}
+    cases["gs_mesh_student"] = check_loss("gs_mesh student render vs GT", student, gt0, True)
+    for shape in LOSS_RAGGED:
+        for k, pair in loss_pairs(shape, dev, shape[0]).items():
+            cases[f"{shape[0]}x{shape[1]}_{k}"] = check_loss(k, *pair, False)
+
+    paths = {}
+    for gs_type, scene, model, model_state in (
+            ("gs_mesh", ns.scene, mesh_model, ns.scene.init_model_state(mesh_model, SH_DEGREE)),
+            ("gs_flame", ns.flame_scene, ns.flame_model,
+             ns.flame_scene.init_model_state(ns.flame_model, SH_DEGREE))):
+        state = make_train_state(model_state, optimization_config(gs_type), scene.cameras_extent)
+        step = make_train_step(model, optimization_config(gs_type), SH_DEGREE)
+        rec = Recording(dev)
+        S.photometric_loss_cuda.launches_fwd = S.photometric_loss_cuda.launches_bwd = 0
+        with tracing(rec):
+            for i in range(LOSS_STEPS):
+                cam, gt = scene.train_cameras[i % len(scene.train_cameras)]
+                state, _ = step(state, cam, torch.as_tensor(gt, device=dev), white)
+        torch.cuda.synchronize()
+        got = paths[f"{gs_type}_train"] = {
+            "steps": LOSS_STEPS, "loss_fwd": S.photometric_loss_cuda.launches_fwd,
+            "loss_bwd": S.photometric_loss_cuda.launches_bwd,
+            "loss_kernel_per_step": rec.totals().get("loss_kernel", 0) / LOSS_STEPS}
+        if (got["loss_fwd"], got["loss_bwd"], got["loss_kernel_per_step"]) != (
+                LOSS_STEPS, LOSS_STEPS, 1.0):
+            raise SystemExit(f"{gs_type} steps launched the loss kernels {got}")
+        del state
+    log(f"[13] launches per path: {json.dumps(paths)}")
+    return {"cases": cases, "paths": paths}
+
+
+def loss_line(phase13: dict) -> list:
+    """The kernels line's entries of the loss kernels (phase 13): their
+    launches per path, L1's differing map bits and largest relative error
+    of total and l1, L2's largest error against its plain version and
+    autograd, and per timed input the times beside the bound and the
+    chain's."""
+    cases = phase13["cases"]
+    timed = {case: c for case, c in cases.items() if "times" in c}
+    entries = []
+    for name, key, chain in (("loss_fwd", "fwd", "chain_fwd_ms"),
+                             ("loss_bwd", "bwd", "chain_fwd_bwd_ms")):
+        if key == "fwd":
+            quality = {"max_map_bits_differing": max(c["map_bits_differing"]
+                                                     for c in cases.values()),
+                       "max_total_rel_err": max(c["total_rel_err"] for c in cases.values()),
+                       "max_l1_rel_err": max(c["l1_rel_err"] for c in cases.values())}
+        else:
+            quality = {f"max_rel_err_{field}": max(e[field] for c in cases.values()
+                                                   for e in c["vjp"].values())
+                       for field in ("vs_plain", "vs_autograd", "vs_f64", "autograd_vs_f64")}
+            quality["max_bits_vs_plain"] = max(e["bits_vs_plain"] for c in cases.values()
+                                               for e in c["vjp"].values())
+        entries.append({
+            "name": name, "route": "cuda", "source": "gaussian_mesh_splatting_tpu_torch/csrc/loss.cu",
+            "replaces": None,  # XLA fuses the JAX package's SSIM: no TPU kernel
+            **{f"launches_{path}": v[name] for path, v in phase13["paths"].items()},
+            **quality,
+            **{f"{case}_{k}": c["times"][k2] for case, c in timed.items()
+               for k, k2 in (("ms", f"{key}_ms"), ("queued_ms", f"{key}_queued_ms"),
+                             ("device_ms", f"{key}_device_ms"), ("bound_ms", f"{key}_bound_ms"),
+                             ("chain_ms", chain),
+                             ("plain_ms", "chain_fwd_ms" if key == "fwd" else "plain_bwd_ms"))},
+            **({f"{case}_kernels_fwd_bwd_ms": c["times"]["kernels_fwd_bwd_ms"]
+                for case, c in timed.items()} if key == "bwd" else {}),
+        })
+    return entries
+
 def bf16_line_keys(phase11: dict, kernel: str) -> dict:
     """A kernel's bf16 keys of the kernels line (phase 11): per input (no
     prefix: gs_mesh; "gs_", "flame_") the times on both tables in turns, the
@@ -3225,7 +3473,7 @@ def main() -> int:
 
     # ---- 1. build (one nvcc per source, started together) --------------------
     t0 = time.perf_counter()
-    kernel_names = ("composite_fwd", "composite_bwd", "preprocess")
+    kernel_names = ("composite_fwd", "composite_bwd", "preprocess", "loss")
     with concurrent.futures.ThreadPoolExecutor(len(kernel_names)) as pool:
         builds = dict(zip(kernel_names, pool.map(cuda_build.build, kernel_names)))
     for name, (path, build_s, build_log) in builds.items():
@@ -3787,7 +4035,13 @@ def main() -> int:
     log(f"    phase 12: {time.perf_counter() - t0:.1f} s; script so far (wall): "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- 13. output lines ---------------------------------------------------
+    # ---- 13. the loss kernels ------------------------------------------------
+    t0 = time.perf_counter()
+    phase13 = loss_kernels(ns, dev)
+    log(f"    phase 13: {time.perf_counter() - t0:.1f} s; script so far (wall): "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- 14. output lines ---------------------------------------------------
     kernels = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
@@ -3861,7 +4115,7 @@ def main() -> int:
                                                                    ("flame_", "flame"))
            for k, v in (("cuda_ms", "bwd_ms_cuda"), ("tight_ms", "bwd_ms_tight"))},
         **bf16_line_keys(phase11, "bwd"),
-    }, *projection_line(phase12)]}
+    }, *projection_line(phase12), *loss_line(phase13)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,10 @@ Spans of the program: the train step's stages `to_bag`, `render`, `loss`,
 for the pair count) and `composite_fwd` (the attribute table and B1) in
 `ops/rasterize_cuda.py` and `ops/binning.py`; `composite_bwd` (B2) in the
 composite's backward. Counters: `pairs` (a render's pair-list length),
-`host_syncs` (each place the host blocks on the device) and
+`host_syncs` (each place the host blocks on the device),
 `project_kernel` (1 a render whose projection ran as the CUDA kernels, 0
-where `preprocess` ran)."""
+where `preprocess` ran) and `loss_kernel` (1 a loss that ran as the CUDA
+kernels of `ops/ssim.py`, 0 where the chain ran; `train/loss.py`)."""
 from __future__ import annotations
 
 import contextlib

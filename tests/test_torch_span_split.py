@@ -10,7 +10,7 @@ import pytest
 import tools_torch_span_split as tool
 
 TRAIN_SPLIT = {"project_ms", "bin_ms", "bin_sync_ms", "bwd_loss_ms", "bwd_composite_ms",
-               "bwd_geometry_ms", "pairs", "host_syncs", "project_kernel"}
+               "bwd_geometry_ms", "pairs", "host_syncs", "project_kernel", "loss_kernel"}
 
 
 @pytest.fixture(scope="module")
@@ -35,8 +35,10 @@ def test_train_split(lines):
     split = d["split"]
     assert set(split) == TRAIN_SPLIT
     assert split["host_syncs"] == 3 and split["pairs"] > 0
-    assert all(split[k] > 0 for k in TRAIN_SPLIT - {"pairs", "host_syncs", "project_kernel"})
+    assert all(split[k] > 0 for k in TRAIN_SPLIT - {"pairs", "host_syncs", "project_kernel",
+                                                    "loss_kernel"})
     assert split["project_kernel"] == 0  # CPU tensors: `preprocess`
+    assert split["loss_kernel"] == 0  # CPU tensors: the chain
     assert set(d["ms_per_step"]) == {"plain", "marks", "traced"}
     assert set(d["stage_ms"]) == {"to_bag", "render", "loss", "backward", "adam", "stats"}
     nested = d["profiled"]["nested_idle_gaps"]

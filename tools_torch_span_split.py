@@ -21,9 +21,10 @@ program through `benchmark.program`), warmed up, then:
      per step or view on the host clock: `project_ms`, `bin_ms`,
      `bin_sync_ms`, `bwd_loss_ms` (the backward up to B2's span),
      `bwd_composite_ms`, `bwd_geometry_ms` (after it), `pairs`,
-     `host_syncs`; beside them the `mark` stages (CUDA events) and the
-     spans' own device-clock times; the sink's cost, as the median over
-     rounds of traced over plain and over marks, and one span's host cost;
+     `host_syncs`, `project_kernel`, `loss_kernel`; beside them the `mark`
+     stages (CUDA events) and the spans' own device-clock times; the
+     sink's cost, as the median over rounds of traced over plain and over
+     marks, and one span's host cost;
   3. a stretch of `--profile_seconds` under `torch.profiler` (device
      activity alone, `benchmark.tracing.Profiled`) with the sink on: the
      idle gaps labelled by the benchmark's stage boundaries, and again by
