@@ -209,6 +209,9 @@ SIZE = 800  # main-path image edge
 N_TRAIN, N_TEST = 3, 2
 NUM_SPLATS = 10
 SH_DEGREE = 3
+# B1 and B2 on the float32 table: the kernel entries (ops/cuda_build.ENTRIES)
+# whose launches (`cuda_build.launches`) each path's checks count
+COMPOSITES = ("composite_fwd", "composite_bwd")
 FOVX = 0.8
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
@@ -977,6 +980,7 @@ def gradient_conformance(dev) -> dict:
     B1 once a loss, B2 once a gradient. Returns {"fwd", "bwd"} and the
     reports."""
     from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 
     import tools_torch_verify_grads as vg
 
@@ -985,10 +989,10 @@ def gradient_conformance(dev) -> dict:
     log(f"[9a] chunked oracle (scan_chunk {CHUNK}) vs its flat fold on the card (96 Gaussians, "
         f"200x50): forward bit-equal, gradients max err / max|g| {chunk_err:.3g} "
         f"(bound {CHUNK_TOL})")
-    launch_counts(reset=True)
+    cuda_build.launches.clear()
     oracle = vg.oracle_grad_check(*ORACLE_CASE, device=dev)
     fd = vg.fd_checks(eps=vg.FD_EPS[:1], device=dev)
-    fwd, bwd = launch_counts()
+    fwd, bwd = (cuda_build.launches[e] for e in COMPOSITES)
     log(f"[9b] CUDA path vs the chunked oracle ({ORACLE_CASE[0]} Gaussians, "
         f"{ORACLE_CASE[1]}x{ORACLE_CASE[2]}, tolerance {GRAD_TOL}*max|g| per key): "
         f"{json.dumps(oracle)}")
@@ -1509,6 +1513,8 @@ def bf16_training(ns, dev) -> dict:
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
+    from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import BWD_ENTRIES, FWD_ENTRIES
     from gaussian_mesh_splatting_tpu_torch.renderer import render
     from gaussian_mesh_splatting_tpu_torch.train import (
         make_train_state, make_train_step, optimization_config)
@@ -1517,12 +1523,16 @@ def bf16_training(ns, dev) -> dict:
 
     white = torch.ones(3, device=dev)
     cam0 = ns.scene.train_cameras[0][0]
-    reset_launch_counts()
+
+    def entry_launches() -> dict:  # the composites' five entries
+        return {e: cuda_build.launches[e] for e in (*FWD_ENTRIES.values(), *BWD_ENTRIES.values())}
+
+    cuda_build.launches.clear()
     with torch.no_grad():
         r_b = render(ns.bag, cam0, white, sh_degree=SH_DEGREE, attr_precision="bf16")
         r_x = render(ns.bag, cam0, white, sh_degree=SH_DEGREE)
     torch.cuda.synchronize()
-    render_launches = entry_point_launches()
+    render_launches = entry_launches()
     res = {"render": {"max_abs_diff": float((r_b.image - r_x.image).abs().max()),
                       "psnr_vs_exact": float(psnr(r_b.image, r_x.image)),
                       "finite": bool(torch.isfinite(r_b.image).all()),
@@ -1531,8 +1541,8 @@ def bf16_training(ns, dev) -> dict:
         f"{json.dumps(res['render'])}")
     if not (res["render"]["finite"] and res["render"]["psnr_vs_exact"] >= BF16_RENDER_PSNR):
         raise SystemExit("the bf16 render of the teacher is off the exact one")
-    if render_launches != {"fwd": 1, "fwd_bf16": 1, "bwd": 0, "bwd_round_pairs": 0,
-                           "bwd_bf16": 0}:
+    if render_launches != {"composite_fwd": 1, "composite_fwd_bf16": 1, "composite_bwd": 0,
+                           "composite_bwd_round_pairs": 0, "composite_bwd_bf16": 0}:
         raise SystemExit(f"the renders launched {render_launches}")
 
     cfg = optimization_config("gs_mesh")
@@ -1545,7 +1555,7 @@ def bf16_training(ns, dev) -> dict:
                                  ns.scene.cameras_extent)
         step = make_train_step(mesh_model, cfg, SH_DEGREE,
                                render_kwargs=dict(attr_precision=attr, grad_precision=grad))
-        reset_launch_counts()
+        cuda_build.launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses = []
@@ -1555,7 +1565,7 @@ def bf16_training(ns, dev) -> dict:
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = entry_point_launches()
+        counts = entry_launches()
         losses = torch.stack(losses).tolist()
         window = min(20, iters // 3)  # steps at each end whose mean loss must fall
         test_psnr = statistics.mean(float(psnr(eval_render(state, c, white), g))
@@ -1567,9 +1577,10 @@ def bf16_training(ns, dev) -> dict:
         log(f"[11d] {iters} gs_mesh steps in ({attr}, {grad}): {json.dumps(r)}")
         bf16 = attr == "bf16"
         rounds = grad == "bf16" and not bf16
-        want = {"fwd": 0 if bf16 else iters, "fwd_bf16": iters if bf16 else 0,
-                "bwd": 0 if bf16 or rounds else iters, "bwd_round_pairs": iters if rounds else 0,
-                "bwd_bf16": iters if bf16 else 0}
+        want = {"composite_fwd": 0 if bf16 else iters, "composite_fwd_bf16": iters if bf16 else 0,
+                "composite_bwd": 0 if bf16 or rounds else iters,
+                "composite_bwd_round_pairs": iters if rounds else 0,
+                "composite_bwd_bf16": iters if bf16 else 0}
         if counts != want:
             raise SystemExit(f"({attr}, {grad}) training launched {counts}, expected {want}")
         if not (r["finite"] and r["loss_last"] < r["loss_first"]):
@@ -1872,43 +1883,19 @@ def kernel_cases(ns, dev) -> dict:
 
 
 def counted(fn):
-    """Run fn() with every kernel entry point's launch count set to 0 just
-    before it; returns (its result, wall seconds to a synchronized end, B1
+    """Run fn() with every kernel entry's launch count cleared just before
+    it; returns (its result, wall seconds to a synchronized end, B1
     launches, B2 launches on the float32 table)."""
     import torch
 
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 
-    reset_launch_counts()
+    cuda_build.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0, rc.composite_fwd_cuda.launches,
-            rc.composite_bwd_cuda.launches)
-
-
-LAUNCH_COUNTS = {"fwd": ("composite_fwd_cuda", "launches"),
-                 "fwd_bf16": ("composite_fwd_cuda", "launches_bf16"),
-                 "bwd": ("composite_bwd_cuda", "launches"),
-                 "bwd_round_pairs": ("composite_bwd_cuda", "launches_round_pairs"),
-                 "bwd_bf16": ("composite_bwd_cuda", "launches_bf16")}
-
-
-def reset_launch_counts() -> None:
-    """Every kernel entry point's launch count to 0."""
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
-
-    for wrapper, count in LAUNCH_COUNTS.values():
-        setattr(getattr(rc, wrapper), count, 0)
-
-
-def entry_point_launches() -> dict:
-    """Each kernel entry point's launches since the last reset."""
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
-
-    return {k: getattr(getattr(rc, wrapper), count)
-            for k, (wrapper, count) in LAUNCH_COUNTS.items()}
+    return (out, time.perf_counter() - t0, *(cuda_build.launches[e] for e in COMPOSITES))
 
 
 def expect_launches(label: str, fwd: int, bwd: int, want_fwd: int, want_bwd: int) -> None:
@@ -1953,7 +1940,7 @@ def timed_train(argv: list[str], device: str = "cuda"):
 
     import gaussian_mesh_splatting_tpu_torch.train as train_pkg
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 
     def sync():
         if device.startswith("cuda"):
@@ -1975,8 +1962,7 @@ def timed_train(argv: list[str], device: str = "cuda"):
         return timed
 
     tee = _Tee(sys.stdout)
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    cuda_build.launches.clear()
     train_pkg.make_train_step = timed_make
     try:
         sync()
@@ -1987,8 +1973,8 @@ def timed_train(argv: list[str], device: str = "cuda"):
         wall = time.perf_counter() - t0
     finally:
         train_pkg.make_train_step = real_make
-    return (res, "".join(tee.parts), step_ms, wall, rc.composite_fwd_cuda.launches,
-            rc.composite_bwd_cuda.launches)
+    return (res, "".join(tee.parts), step_ms, wall,
+            *(cuda_build.launches[e] for e in COMPOSITES))
 
 
 def device_busy_share(trace_path: str) -> dict:
@@ -2333,16 +2319,6 @@ def rank_scene(dev):
     return scene, init, teacher, gts
 
 
-def launch_counts(reset: bool = False) -> tuple[int, int]:
-    """(B1, B2) launches of this process since the last reset."""
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
-
-    counts = (rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches)
-    if reset:
-        rc.composite_fwd_cuda.launches = rc.composite_bwd_cuda.launches = 0
-    return counts
-
-
 def params_checksum(params: dict) -> int:
     """The params' bits summed as int64 words, position-weighted: equal on
     two ranks when their params are bit-identical (up to collisions)."""
@@ -2360,6 +2336,7 @@ def p8_render(rank, world, dev):
     renders' times (CUDA events, median of 5)."""
     import torch
 
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
     from gaussian_mesh_splatting_tpu_torch.parallel import (
         create_mesh, render_gaussian_sharded, render_row_sharded)
@@ -2380,13 +2357,14 @@ def p8_render(rank, world, dev):
             def sharded(fn=fn):
                 return fn(teacher, cam, bg, mesh, sh_degree=SH_DEGREE)
 
-            launch_counts(reset=True)
+            cuda_build.launches.clear()
             torch.cuda.synchronize()
             img = sharded()
             torch.cuda.synchronize()
             out[shard] = {"bit_equal": bool(torch.equal(img, ref.image)),
                           "max_abs_err": float((img - ref.image).abs().max()),
-                          "launches": launch_counts(), "ms": cuda_ms(sharded, reps=5)}
+                          "launches": tuple(cuda_build.launches[e] for e in COMPOSITES),
+                          "ms": cuda_ms(sharded, reps=5)}
     return out
 
 
@@ -2401,6 +2379,7 @@ def p8_steps(rank, world, dev, *, mode):
     import torch.distributed as dist
 
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.parallel import (
         create_mesh, create_mesh2d, make_dp_train_step, make_sharded_train_step)
     from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
@@ -2419,7 +2398,7 @@ def p8_steps(rank, world, dev, *, mode):
         step, pick = make_sharded_train_step(mesh_model, cfg, SH_DEGREE, create_mesh(),
                                              shard=mode), 0
     cams, bg = scene.train_cameras, torch.ones(3, device=dev)
-    launch_counts(reset=True)
+    cuda_build.launches.clear()
     _, metrics = step(state, cams[pick][0], gts[pick], bg)
     out = {"first_loss": float(metrics["loss"]),
            "stats": {k: getattr(state.stats, k).cpu().clone()
@@ -2436,7 +2415,7 @@ def p8_steps(rank, world, dev, *, mode):
         end.synchronize()
         out["step_ms"].append(start.elapsed_time(end))
         out["losses"].append(float(metrics["loss"]))
-    out["launches"] = launch_counts()
+    out["launches"] = tuple(cuda_build.launches[e] for e in COMPOSITES)
     sums = [None] * world
     dist.all_gather_object(sums, params_checksum(state.params))
     out["checksums"] = sums
@@ -2450,8 +2429,9 @@ def p8_app(rank, world, dev, *, flag, model_dir):
     import torch.distributed as dist
 
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 
-    launch_counts(reset=True)
+    cuda_build.launches.clear()
     res = train_app.main(["--gs_type", "gs_mesh", "-s", os.path.join(WORK, "scene"),
                           "-m", model_dir, "--num_splats", str(NUM_SPLATS),
                           "--sh_degree", str(SH_DEGREE), "--white_background",
@@ -2459,7 +2439,8 @@ def p8_app(rank, world, dev, *, flag, model_dir):
                           "--save_iterations", str(PAR_STEPS), *flag])
     sums = [None] * world
     dist.all_gather_object(sums, params_checksum(res.state.params))
-    return {"losses": res.losses, "launches": launch_counts(), "checksums": sums}
+    return {"losses": res.losses, "launches": tuple(cuda_build.launches[e] for e in COMPOSITES),
+            "checksums": sums}
 
 
 def p8_comm(rank, world, dev):
@@ -2660,6 +2641,7 @@ def parallel_and_native(ns, dev, card: str) -> dict:
 
     from gaussian_mesh_splatting_tpu_torch.io import native
     from gaussian_mesh_splatting_tpu_torch.io.ply import read_ply
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import composite_fwd_cuda
     from gaussian_mesh_splatting_tpu_torch.parallel.row_sharded import row_band
     from gaussian_mesh_splatting_tpu_torch.scene.colmap_loader import read_points3D_binary
@@ -2686,7 +2668,7 @@ def parallel_and_native(ns, dev, card: str) -> dict:
     log(f"    B1 alone per row band, 800x800 (queued ms): {json.dumps(b1)}")
 
     refs = unsharded_references(ns, dev)
-    launch_counts(reset=True)  # the references' and the bands' launches are not a path's
+    cuda_build.launches.clear()  # the references' and the bands' launches are not a path's
     t0 = time.perf_counter()
     flags = {"data": ["--data_parallel"], "rows": ["--shard", "rows"],
              "gaussians": ["--shard", "gaussians"]}
@@ -2900,8 +2882,8 @@ def vjp_errors(inputs, cam, aa: bool, mode: str, cots, sh_degree: int) -> dict:
     differs between the kernel and each of autograd and the plain version."""
     import torch
 
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
-    from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess, preprocess_bwd_plain
+    from gaussian_mesh_splatting_tpu_torch.ops.projection import (
+        preprocess, preprocess_bwd_plain, project_bwd_cuda)
 
     def autograd(dtype):
         leaves = [t.detach().to(dtype).requires_grad_() for t in inputs]
@@ -2911,7 +2893,7 @@ def vjp_errors(inputs, cam, aa: bool, mode: str, cots, sh_degree: int) -> dict:
                                     proj.color), leaves, tuple(c.to(dtype) for c in cots))
 
     ref32, ref64 = autograd(torch.float32), autograd(torch.float64)
-    kern = rc.project_bwd_cuda(*inputs, cam, cots, sh_degree=sh_degree, antialiasing=aa)
+    kern = project_bwd_cuda(*inputs, cam, cots, sh_degree=sh_degree, antialiasing=aa)
     plain = preprocess_bwd_plain(*inputs, cam, cots, sh_degree=sh_degree, antialiasing=aa)
 
     def largest(g):
@@ -2966,7 +2948,7 @@ def check_projection(label: str, bag, cam, gt, bg, dev, time_it: bool,
 
     import torch
 
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops import projection as P
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess, preprocess_bwd_plain
 
     gen = torch.Generator().manual_seed(19)
@@ -2982,7 +2964,7 @@ def check_projection(label: str, bag, cam, gt, bg, dev, time_it: bool,
                   alive=bag.alive, radius_mode=mode)
         with torch.no_grad():
             want = preprocess(*inputs[:4], cam, **kw)
-            got = rc.project(*inputs[:4], cam, **kw)
+            got = P.project(*inputs[:4], cam, **kw)
         torch.cuda.synchronize()
         res["fwd_mismatches"][case] = {f: bit_mismatches(a, b)
                                        for f, a, b in zip(want._fields, want, got)}
@@ -3007,9 +2989,9 @@ def check_projection(label: str, bag, cam, gt, bg, dev, time_it: bool,
     if time_it:
         kw = dict(sh_degree=sh_degree)
         cots = seeded
-        fwd = lambda: rc.project_fwd_cuda(*inputs, cam, mean2d_offset=offset,  # noqa: E731
-                                          alive=bag.alive, **kw)
-        bwd = lambda: rc.project_bwd_cuda(*inputs, cam, cots, **kw)  # noqa: E731
+        fwd = lambda: P.project_fwd_cuda(*inputs, cam, mean2d_offset=offset,  # noqa: E731
+                                         alive=bag.alive, **kw)
+        bwd = lambda: P.project_bwd_cuda(*inputs, cam, cots, **kw)  # noqa: E731
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
 
         def chain_fwd_bwd():
@@ -3051,7 +3033,7 @@ def projection_kernels(ns, dev) -> dict:
     from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
     from gaussian_mesh_splatting_tpu_torch.models import vanilla
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.train import (
         make_train_state, make_train_step, optimization_config)
     from gaussian_mesh_splatting_tpu_torch.utils.profiling import Recording, tracing
@@ -3078,18 +3060,10 @@ def projection_kernels(ns, dev) -> dict:
             shs=shs4 if degree > SH_DEGREE else None)
 
     def launches():
-        return {"project_fwd": rc.project_fwd_cuda.launches,
-                "project_bwd": rc.project_bwd_cuda.launches,
-                "composite_fwd": rc.composite_fwd_cuda.launches,
-                "composite_bwd": rc.composite_bwd_cuda.launches}
-
-    def zero_launches():
-        for fn in (rc.project_fwd_cuda, rc.project_bwd_cuda, rc.composite_fwd_cuda,
-                   rc.composite_bwd_cuda):
-            fn.launches = 0
+        return {e: cuda_build.launches[e] for e in ("project_fwd", "project_bwd", *COMPOSITES)}
 
     paths = {}
-    zero_launches()
+    cuda_build.launches.clear()
     render_app.main(["-m", ns.model_dir])
     torch.cuda.synchronize()
     n_views = N_TRAIN + N_TEST
@@ -3105,7 +3079,7 @@ def projection_kernels(ns, dev) -> dict:
         state = make_train_state(model_state, optimization_config(gs_type), scene.cameras_extent)
         step = make_train_step(model, optimization_config(gs_type), SH_DEGREE)
         rec = Recording(dev)
-        zero_launches()
+        cuda_build.launches.clear()
         with tracing(rec):
             for i in range(PROJECT_STEPS):
                 cam, gt = scene.train_cameras[i % len(scene.train_cameras)]
@@ -3322,7 +3296,7 @@ def loss_kernels(ns, dev) -> dict:
     import torch
 
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
-    from gaussian_mesh_splatting_tpu_torch.ops import ssim as S
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.renderer import render
     from gaussian_mesh_splatting_tpu_torch.train import (
         make_train_state, make_train_step, optimization_config)
@@ -3348,15 +3322,15 @@ def loss_kernels(ns, dev) -> dict:
         state = make_train_state(model_state, optimization_config(gs_type), scene.cameras_extent)
         step = make_train_step(model, optimization_config(gs_type), SH_DEGREE)
         rec = Recording(dev)
-        S.photometric_loss_cuda.launches_fwd = S.photometric_loss_cuda.launches_bwd = 0
+        cuda_build.launches.clear()
         with tracing(rec):
             for i in range(LOSS_STEPS):
                 cam, gt = scene.train_cameras[i % len(scene.train_cameras)]
                 state, _ = step(state, cam, torch.as_tensor(gt, device=dev), white)
         torch.cuda.synchronize()
         got = paths[f"{gs_type}_train"] = {
-            "steps": LOSS_STEPS, "loss_fwd": S.photometric_loss_cuda.launches_fwd,
-            "loss_bwd": S.photometric_loss_cuda.launches_bwd,
+            "steps": LOSS_STEPS, "loss_fwd": cuda_build.launches["loss_fwd"],
+            "loss_bwd": cuda_build.launches["loss_bwd"],
             "loss_kernel_per_step": rec.totals().get("loss_kernel", 0) / LOSS_STEPS}
         if (got["loss_fwd"], got["loss_bwd"], got["loss_kernel_per_step"]) != (
                 LOSS_STEPS, LOSS_STEPS, 1.0):
@@ -3427,13 +3401,14 @@ def bf16_line_keys(phase11: dict, kernel: str) -> dict:
                                                 else "rel_err_vs_exact"]})
     train = phase11["train"]
     if kernel == "fwd":
-        keys.update(bf16_launches_train=train["bf16"]["launches"]["fwd_bf16"],
-                    bf16_launches_render=train["render"]["launches"]["fwd_bf16"],
-                    launches_train_f32_attrs_bf16_grads=train["f32_bf16"]["launches"]["fwd"])
+        keys.update(bf16_launches_train=train["bf16"]["launches"]["composite_fwd_bf16"],
+                    bf16_launches_render=train["render"]["launches"]["composite_fwd_bf16"],
+                    launches_train_f32_attrs_bf16_grads=train["f32_bf16"]["launches"][
+                        "composite_fwd"])
     else:
-        keys.update(bf16_launches_train=train["bf16"]["launches"]["bwd_bf16"],
+        keys.update(bf16_launches_train=train["bf16"]["launches"]["composite_bwd_bf16"],
                     round_pairs_launches_train_f32_attrs_bf16_grads=train["f32_bf16"][
-                        "launches"]["bwd_round_pairs"])
+                        "launches"]["composite_bwd_round_pairs"])
     return keys
 
 
@@ -3454,6 +3429,8 @@ def main() -> int:
     from gaussian_mesh_splatting_tpu_torch.models import mesh as mesh_model
     from gaussian_mesh_splatting_tpu_torch.models import vanilla
     from gaussian_mesh_splatting_tpu_torch.ops import cuda_build, rasterize_cuda as rc
+
+    launches = cuda_build.launches  # by entry name; cleared before each path
     from gaussian_mesh_splatting_tpu_torch.ops.binning import bin_gaussians, tile_launch_order
     from gaussian_mesh_splatting_tpu_torch.ops.knn import knn_scale_init
     from gaussian_mesh_splatting_tpu_torch.ops.projection import preprocess
@@ -3568,15 +3545,14 @@ def main() -> int:
 
     # ---- 3. the render path through the user's entry point -----------------
     log("[3] apps.render.main on the card")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_app.main(["-m", model_dir])
     torch.cuda.synchronize()
     app_s = time.perf_counter() - t0
-    render_launches = rc.composite_fwd_cuda.launches
-    render_bwd_launches = rc.composite_bwd_cuda.launches
+    render_launches = launches["composite_fwd"]
+    render_bwd_launches = launches["composite_bwd"]
     n_views = N_TRAIN + N_TEST
     log(f"    {n_views} views in {app_s:.2f} s ({1e3 * app_s / n_views:.1f} ms per view, "
         f"scene load and PNG writes included); composite_fwd launches: {render_launches}, "
@@ -3618,14 +3594,13 @@ def main() -> int:
         `must_fall` times the first 20's), a test PSNR that rises, B2 once per
         step, B1 once per step and eval view, and finite gradients at the
         last step. Returns (result, fwd launches, bwd launches)."""
-        rc.composite_fwd_cuda.launches = 0
-        rc.composite_bwd_cuda.launches = 0
+        launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = train_app.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        fwd, bwd = rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches
+        fwd, bwd = launches["composite_fwd"], launches["composite_bwd"]
         first, last = float(np.mean(res.losses[:20])), float(np.mean(res.losses[-20:]))
         psnrs = [res.test_psnr[i] for i in sorted(res.test_psnr)]
         log(f"    {label}: {iters} steps in {wall:.2f} s ({1e3 * wall / iters:.1f} ms per step, "
@@ -3652,9 +3627,9 @@ def main() -> int:
                     "--test_iterations", *map(str, TEST_ITERS),
                     "--save_iterations", str(TRAIN_ITERS)],
         TRAIN_ITERS, len(TEST_ITERS) * N_TEST, must_fall=0.8)
-    rc.composite_fwd_cuda.launches = 0
+    launches.clear()
     render_app.main(["-m", train_dir])
-    if rc.composite_fwd_cuda.launches != n_views:
+    if launches["composite_fwd"] != n_views:
         raise SystemExit("the trained snapshot did not render through the kernel")
     check_pngs(train_dir, TRAIN_ITERS)
     log("    the trained snapshot renders through apps.render; all gradients finite")
@@ -3677,23 +3652,22 @@ def main() -> int:
         f"per mesh {moved}")
     if mm_state.alive.shape[0] != ns.mm_init["alive"].shape[0] or not min(moved) > 0:
         raise SystemExit("every mesh's alpha must move")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     mm_resumed = train_app.main([
         *mm_argv, "-m", ns.mm_resume_dir, "--iterations", str(MM_RESUME_ITERS),
         "--test_iterations", str(MM_RESUME_ITERS), "--save_iterations", str(MM_RESUME_ITERS),
         "--start_checkpoint", train_app.checkpoint_path(ns.mm_train_dir, MM_CHECKPOINT)])
     n_mm_resumed = MM_RESUME_ITERS - MM_CHECKPOINT
     log(f"    resumed from chkpnt{MM_CHECKPOINT}.pt: {len(mm_resumed.losses)} steps to step "
-        f"{mm_resumed.state.step}; composite_bwd launches {rc.composite_bwd_cuda.launches}")
+        f"{mm_resumed.state.step}; composite_bwd launches {launches["composite_bwd"]}")
     if (len(mm_resumed.losses) != n_mm_resumed or mm_resumed.state.step != MM_RESUME_ITERS
-            or rc.composite_bwd_cuda.launches != n_mm_resumed
-            or rc.composite_fwd_cuda.launches != n_mm_resumed + N_COLMAP_TEST
+            or launches["composite_bwd"] != n_mm_resumed
+            or launches["composite_fwd"] != n_mm_resumed + N_COLMAP_TEST
             or not np.isfinite(mm_resumed.losses).all()):
         raise SystemExit("the resumed gs_multi_mesh run did not begin at the checkpoint's step")
-    rc.composite_fwd_cuda.launches = 0
+    launches.clear()
     render_app.main(["-m", ns.mm_train_dir])
-    if rc.composite_fwd_cuda.launches != N_COLMAP:
+    if launches["composite_fwd"] != N_COLMAP:
         raise SystemExit("the gs_multi_mesh snapshot did not render through the kernel")
     check_pngs(ns.mm_train_dir, MM_ITERS, "gs_multi_mesh", colmap_views)
     log(f"    the gs_multi_mesh snapshot renders through apps.render ({N_COLMAP} PNGs)")
@@ -3716,11 +3690,10 @@ def main() -> int:
     if not all(bool(torch.isfinite(flame_state.params[k].grad).all()) and g > 0
                for k, g in flame_grads.items()):
         raise SystemExit("every FLAME param needs a finite, nonzero gradient")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     render_flame_app.main(["-m", ns.flame_train_dir, "--animated", "--frames", str(FLAME_FRAMES),
                            "--dump_obj"])
-    render_flame_launches = rc.composite_fwd_cuda.launches
+    render_flame_launches = launches["composite_fwd"]
     out = os.path.join(ns.flame_train_dir, "renders_flame_animated")
     names = sorted(os.listdir(out))
     expect = [f"{i:05d}.png" for i in range(FLAME_FRAMES)] + \
@@ -3728,7 +3701,7 @@ def main() -> int:
     log(f"    apps.render_flame --animated --frames {FLAME_FRAMES} --dump_obj: {names}; "
         f"composite_fwd launches {render_flame_launches}")
     if names != expect or render_flame_launches != FLAME_FRAMES \
-            or rc.composite_bwd_cuda.launches != 0:
+            or launches["composite_bwd"] != 0:
         raise SystemExit(f"apps.render_flame: expected {expect} and {FLAME_FRAMES} launches")
     for name in names[:FLAME_FRAMES]:
         with Image.open(os.path.join(out, name)) as im:
@@ -3742,8 +3715,7 @@ def main() -> int:
         f"{list(GS_TEST_ITERS)}, checkpoint at {GS_CHECKPOINT}")
     gs_argv = ["--gs_type", "gs", "-s", ns.gs_data_dir, "--eval", "--sh_degree", str(SH_DEGREE),
                "--white_background", *(str(x) for kv in GS_SCHEDULE.items() for x in kv)]
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gs_result = train_app.main([
@@ -3753,8 +3725,8 @@ def main() -> int:
     ])
     torch.cuda.synchronize()
     gs_train_s = time.perf_counter() - t0
-    gs_fwd_launches = rc.composite_fwd_cuda.launches
-    gs_bwd_launches = rc.composite_bwd_cuda.launches
+    gs_fwd_launches = launches["composite_fwd"]
+    gs_bwd_launches = launches["composite_bwd"]
     gs_state, events = gs_result.state, gs_result.densify_events
     for e in events:
         log(f"    event {json.dumps(e)}")
@@ -3797,8 +3769,7 @@ def main() -> int:
     ckpt = train_app.checkpoint_path(ns.gs_train_dir, GS_CHECKPOINT)
     if not os.path.exists(ckpt):
         raise SystemExit(f"no checkpoint at {ckpt}")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     resumed = train_app.main([
         *gs_argv, "-m", ns.gs_resume_dir, "--iterations", str(GS_RESUME_ITERS),
         "--test_iterations", str(GS_RESUME_ITERS), "--save_iterations", str(GS_RESUME_ITERS),
@@ -3809,33 +3780,32 @@ def main() -> int:
     log(f"    resumed from {os.path.relpath(ckpt, ROOT)}: {len(resumed.losses)} steps to step "
         f"{resumed.state.step}, {int(resumed.state.alive.sum())} alive of "
         f"{resumed.state.alive.shape[0]} rows (the event at {GS_CHECKPOINT} left "
-        f"{alive_at_ckpt}); composite_bwd launches {rc.composite_bwd_cuda.launches}")
+        f"{alive_at_ckpt}); composite_bwd launches {launches["composite_bwd"]}")
     if (len(resumed.losses) != n_resumed or resumed.state.step != GS_RESUME_ITERS
             or int(resumed.state.alive.sum()) != alive_at_ckpt
             or resumed.state.alive.shape[0] != GS_CAPACITY
-            or rc.composite_bwd_cuda.launches != n_resumed
-            or rc.composite_fwd_cuda.launches != n_resumed + N_TEST):
+            or launches["composite_bwd"] != n_resumed
+            or launches["composite_fwd"] != n_resumed + N_TEST):
         raise SystemExit("the resumed run did not begin at the checkpoint's step and rows")
     if not np.isfinite(resumed.losses).all():
         raise SystemExit("a loss of the resumed run is not finite")
-    rc.composite_fwd_cuda.launches = 0
+    launches.clear()
     render_app.main(["-m", ns.gs_train_dir])
-    if rc.composite_fwd_cuda.launches != n_views:
+    if launches["composite_fwd"] != n_views:
         raise SystemExit("the gs snapshot did not render through the kernel")
     check_pngs(ns.gs_train_dir, GS_ITERS, "gs")
     log(f"    the gs snapshot renders through apps.render ({n_views} PNGs); all params finite")
 
     log(f"[5] apps.train.main --gs_type gs_flat on the card: {FLAT_ITERS} steps, the same "
         f"dataset and schedule, evals at {list(FLAT_TEST_ITERS)}")
-    rc.composite_fwd_cuda.launches = 0
-    rc.composite_bwd_cuda.launches = 0
+    launches.clear()
     flat_result = train_app.main([
         "--gs_type", "gs_flat", *gs_argv[2:], "-m", ns.flat_train_dir,
         "--iterations", str(FLAT_ITERS), "--test_iterations", *map(str, FLAT_TEST_ITERS),
         "--save_iterations", str(FLAT_ITERS),
     ])
-    flat_fwd_launches = rc.composite_fwd_cuda.launches
-    flat_bwd_launches = rc.composite_bwd_cuda.launches
+    flat_fwd_launches = launches["composite_fwd"]
+    flat_bwd_launches = launches["composite_bwd"]
     flat_state, flat_events = flat_result.state, flat_result.densify_events
     flat_first = float(np.mean(flat_result.losses[:20]))
     flat_last = float(np.mean(flat_result.losses[-20:]))
@@ -3860,10 +3830,10 @@ def main() -> int:
         raise SystemExit(f"expected {FLAT_ITERS} backward and {FLAT_ITERS + n_flat_evals} "
                          "forward launches")
     # the snapshot as flat Gaussians and as the triangle soup made from them
-    rc.composite_fwd_cuda.launches = 0
+    launches.clear()
     render_app.main(["-m", ns.flat_train_dir])
     render_app.main(["-m", ns.flat_train_dir, "--gs_type", "gs_points"])
-    if rc.composite_fwd_cuda.launches != 2 * n_views:
+    if launches["composite_fwd"] != 2 * n_views:
         raise SystemExit("the gs_flat snapshot did not render through the kernel")
     check_pngs(ns.flat_train_dir, FLAT_ITERS, "gs_flat")
     check_pngs(ns.flat_train_dir, FLAT_ITERS, "gs_points")

@@ -14,19 +14,23 @@ Port of `preprocess` / `sh_colors` from
 The arithmetic is written per coordinate, in the JAX package's order, so
 that the two agree to float32 rounding.
 
-On CUDA tensors `ops/rasterize_cuda` runs the same function as one kernel
-and its VJP as another (csrc/preprocess.cu). `preprocess_bwd_plain` is that
-VJP in plain torch, line for line as the kernel computes it.
+On CUDA tensors `project` (which `ops/rasterize_cuda` calls) runs the same
+function as one kernel and its VJP as another (csrc/preprocess.cu, P1 and
+P2, behind one autograd Function, launched through `ops/cuda_build`).
+`preprocess_bwd_plain` is that VJP in plain torch, line for line as the
+kernel computes it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.camera import Camera
 from ..core.sh import C0, C1, C2, C3, C4
 from ..core.transforms import quat_to_rotmat
+from . import cuda_build
 
 NEAR_CULL_Z = 0.2  # the CUDA in_frustum near clip
 DILATION = 0.3  # px^2 added to the 2D covariance diagonal
@@ -594,3 +598,213 @@ def preprocess_bwd_plain(
         + g_nx * FP[0, k] + g_ny * FP[1, k] + g_w * FP[3, k] + g_d[k]
         for k in range(3)], dim=-1)
     return (g_means3d, g_scales, g_rotations, g_op.reshape(opacities.shape), g_shs)
+
+
+# ---- the projection kernels (csrc/preprocess.cu) ---------------------------
+
+PROJECT_MAX_SH_DEGREE = 4  # the kernels' SH basis
+CAMERA_FIELDS = (("world_view", (4, 4)), ("full_proj", (4, 4)), ("cam_center", (3,)),
+                 ("tanfovx", ()), ("tanfovy", ()))  # the camera's tensors the kernels read
+RADIUS_MODES = ("cuda", "tight")
+
+
+def _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam: Camera,
+                             sh_degree: int, scale_modifier) -> torch.device:
+    """The projection kernels' own inputs: float32 on one CUDA device,
+    contiguous but for `shs` (N, 3, K >= (sh_degree + 1)^2, any strides),
+    SH degree <= 4 and a Python number as `scale_modifier`; raises
+    ValueError otherwise. Returns the device."""
+    dev = means3d.device
+    n = means3d.shape[0]
+    if n * 4 >= 2**31:
+        raise ValueError("the projection kernels index with 32-bit integers")
+    if not 0 <= sh_degree <= PROJECT_MAX_SH_DEGREE:
+        raise ValueError(f"the projection kernels take SH degrees 0 to {PROJECT_MAX_SH_DEGREE}, "
+                         f"got {sh_degree}")
+    if isinstance(scale_modifier, torch.Tensor):
+        raise ValueError("the projection kernels take scale_modifier as a Python number")
+    cuda_build.check_inputs({
+        "means3d": (means3d, torch.float32, (n, 3)),
+        "scales": (scales, torch.float32, (n, 3)),
+        "rotations": (rotations, torch.float32, (n, 4)),
+        "opacities": (opacities.reshape(-1), torch.float32, (n,)),
+    }, dev)
+    if not opacities.is_contiguous():
+        raise ValueError("opacities must be contiguous")
+    if shs.device != dev or shs.dtype != torch.float32:
+        raise ValueError(f"shs must be float32 on {dev}, got {shs.dtype} on {shs.device}")
+    if shs.dim() != 3 or shs.shape[:2] != (n, 3) or shs.shape[2] < (sh_degree + 1) ** 2:
+        raise ValueError(f"shs must be ({n}, 3, K >= {(sh_degree + 1) ** 2}), "
+                         f"got {tuple(shs.shape)}")
+    return dev
+
+
+def _camera_tensors(cam: Camera, dev: torch.device) -> list[torch.Tensor]:
+    """The camera's tensors the kernels read (CAMERA_FIELDS), float32 on
+    `dev`, made contiguous (the viewer's matrices arrive transposed)."""
+    tensors = [getattr(cam, f).contiguous() for f, _ in CAMERA_FIELDS]
+    cuda_build.check_inputs({f"camera {f}": (t, torch.float32, shape)
+                             for (f, shape), t in zip(CAMERA_FIELDS, tensors)}, dev)
+    return tensors
+
+
+def project_fwd_cuda(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    cam: Camera,
+    *,
+    sh_degree: int,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+    radius_mode: str = "tight",
+    mean2d_offset: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+) -> ProjectedGaussians:
+    """Launch the projection kernel (csrc/preprocess.cu `project_fwd`) on
+    PyTorch's current stream: `preprocess` of these inputs with `shs` (read
+    at its own strides) through `cam` (its tensors read on the device),
+    every output bit-equal. Counted in `cuda_build.launches["project_fwd"]`."""
+    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
+                                   scale_modifier)
+    n = means3d.shape[0]
+    extra = {}
+    if mean2d_offset is not None:
+        extra["mean2d_offset"] = (mean2d_offset, torch.float32, (n, 2))
+    if alive is not None:
+        extra["alive"] = (alive, torch.bool, (n,))
+    cuda_build.check_inputs(extra, dev)
+    if radius_mode not in RADIUS_MODES:
+        raise ValueError(f"unknown radius_mode {radius_mode!r}")
+    camera = _camera_tensors(cam, dev)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = ProjectedGaussians(
+        mean2d=empty(n, 2), depth=empty(n), conic=empty(n, 3), opacity=empty(n),
+        color=empty(n, 3), radius=empty(n), valid=empty(n, dtype=torch.bool),
+        radius_x=empty(n), radius_y=empty(n))
+    cuda_build.launch(
+        "project_fwd", dev,
+        means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+        shs.data_ptr(), *shs.stride(),
+        None if mean2d_offset is None else mean2d_offset.data_ptr(),
+        None if alive is None else alive.data_ptr(),
+        *(t.data_ptr() for t in camera), n, sh_degree, float(scale_modifier),
+        int(antialiasing), int(radius_mode == "tight"), cam.width, cam.height,
+        *(t.data_ptr() for t in out))
+    return out
+
+
+def _cotangent_rows(g: torch.Tensor | None, n: int, cols: int, name: str,
+                    dev: torch.device) -> tuple[torch.Tensor | None, int]:
+    """(a cotangent whose columns are adjacent, its row stride): None stays
+    None (the kernel reads zeros); a view of a wider table (the composite's
+    gradient rows) is read in place; other layouts are copied."""
+    if g is None:
+        return None, 0
+    shape = (n, cols) if cols > 1 else (n,)
+    if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape:
+        raise ValueError(f"the {name} cotangent must be float32 {shape} on {dev}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if cols > 1 and g.stride(1) != 1:
+        g = g.contiguous()
+    return g, g.stride(0)
+
+
+def project_bwd_cuda(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    cam: Camera,
+    grads: tuple,
+    *,
+    sh_degree: int,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Launch the projection's VJP kernel (csrc/preprocess.cu `project_bwd`)
+    on PyTorch's current stream. Same contract as `preprocess_bwd_plain`; a
+    cotangent may be None (zeros) or a strided view. The shs gradient has
+    the layout of `shs`. Counted in `cuda_build.launches["project_bwd"]`."""
+    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
+                                   scale_modifier)
+    n = means3d.shape[0]
+    cots = [_cotangent_rows(g, n, cols, name, dev) for g, cols, name in
+            zip(grads, (2, 1, 3, 1, 3), ("mean2d", "depth", "conic", "opacity", "color"))]
+    camera = _camera_tensors(cam, dev)
+    out = (torch.empty_like(means3d), torch.empty_like(scales), torch.empty_like(rotations),
+           torch.empty_like(opacities), torch.empty_like(shs))
+    cuda_build.launch(
+        "project_bwd", dev,
+        means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+        shs.data_ptr(), *shs.stride(), *(t.data_ptr() for t in camera), n, sh_degree,
+        float(scale_modifier), int(antialiasing), cam.width, cam.height,
+        *(v for g, stride in cots for v in (None if g is None else g.data_ptr(), stride)),
+        *(t.data_ptr() for t in out), *out[4].stride(), shs.shape[2])
+    return out
+
+
+class _Project(torch.autograd.Function):
+    """Projection with SH behind autograd (CUDA tensors): the forward kernel,
+    then the VJP kernel. The radii and `valid` are not differentiable; the
+    gradient of `mean2d_offset` is the mean2d cotangent."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, opacities, shs, mean2d_offset, alive, cam,
+                sh_degree, scale_modifier, antialiasing, radius_mode):
+        settings = dict(sh_degree=sh_degree, scale_modifier=scale_modifier,
+                        antialiasing=antialiasing)
+        proj = project_fwd_cuda(means3d, scales, rotations, opacities, shs, cam,
+                                radius_mode=radius_mode, mean2d_offset=mean2d_offset,
+                                alive=alive, **settings)
+        ctx.save_for_backward(means3d, scales, rotations, opacities, shs)
+        ctx.cam = cam
+        ctx.settings = settings
+        ctx.has_offset = mean2d_offset is not None
+        ctx.mark_non_differentiable(proj.radius, proj.valid, proj.radius_x, proj.radius_y)
+        ctx.set_materialize_grads(False)  # a missing cotangent reads as zeros in the kernel
+        return tuple(proj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mean2d, g_depth, g_conic, g_opacity, g_color, *_non_differentiable):
+        grads = project_bwd_cuda(*ctx.saved_tensors, ctx.cam,
+                                 (g_mean2d, g_depth, g_conic, g_opacity, g_color), **ctx.settings)
+        g_offset = g_mean2d if ctx.has_offset else None
+        return (*grads, g_offset, *[None] * 6)
+
+
+def project(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    cam: Camera,
+    *,
+    shs: torch.Tensor | None,
+    colors: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+    sh_degree: int = 0,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+    mean2d_offset: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+    radius_mode: str = "tight",
+) -> ProjectedGaussians:
+    """`preprocess` of CUDA float32 tensors through the projection kernels,
+    differentiable: the same outputs, bit-equal. They take `shs` of SH
+    degree <= 4 and a Python number as `scale_modifier`; any other call
+    (`colors`, `cov3d_precomp`, another dtype) raises ValueError."""
+    if shs is None or colors is not None or cov3d_precomp is not None:
+        raise ValueError("the projection kernels take `shs`, not `colors` or `cov3d_precomp` "
+                         "(those run through `preprocess` on CPU tensors)")
+    return ProjectedGaussians(*_Project.apply(
+        means3d.contiguous(), scales.contiguous(), rotations.contiguous(),
+        opacities.contiguous(), shs, mean2d_offset, alive, cam, sh_degree, scale_modifier,
+        antialiasing, radius_mode))

@@ -1,11 +1,10 @@
 """Tile rasterizer with hand-written CUDA composites: the port's fast path
 (counterpart of `gaussian_mesh_splatting_tpu/ops/rasterize_pallas.py`).
 
-  project (CUDA kernels)       project / cull / conic / SH: forward
-                               csrc/preprocess.cu `project_fwd`, bit-equal to
-                               ops/projection.py `preprocess`; its VJP
-                               `project_bwd` (plain: `preprocess_bwd_plain`);
-                               CPU tensors run `preprocess` itself
+  project (CUDA kernels)       project / cull / conic / SH: ops/projection.py
+                               `project` (csrc/preprocess.cu `project_fwd`,
+                               bit-equal to `preprocess`, and its VJP
+                               `project_bwd`); CPU tensors run `preprocess`
   bin_gaussians (torch)        depth-ordered per-tile pair lists, ops/binning.py
   pack_attributes (torch)      the ten per-Gaussian attributes as one (N, 12)
                                float32 table: a row is three 16-byte words
@@ -18,9 +17,10 @@
   background + outputs (torch) image = rgb + T * bg
 
 One `torch.autograd.Function` (`_Composite`) joins the two: its forward is
-the forward kernel and its backward the backward kernel (`_Project` joins the
-projection's two kernels alike, for CUDA tensors only: they take `shs` of
-SH degree <= 4, not `colors` or `cov3d_precomp`). For CPU tensors the
+the forward kernel and its backward the backward kernel (`ops/projection`'s
+`_Project` joins the projection's two kernels alike, for CUDA tensors only:
+they take `shs` of SH degree <= 4, not `colors` or `cov3d_precomp`). Every
+kernel is launched through `ops/cuda_build.launch`. For CPU tensors the
 same Function runs the plain PyTorch versions `composite_fwd_plain` and
 `composite_bwd_plain`, so the CPU tests go through the same autograd wiring
 as the card. It never falls back from one to the other: a CUDA tensor gets
@@ -47,9 +47,6 @@ keeps the exact mode, which its strict checks hold.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -57,7 +54,7 @@ from ..core.camera import Camera
 from ..utils import profiling
 from . import cuda_build
 from .binning import Binning, bin_gaussians
-from .projection import ProjectedGaussians, preprocess
+from .projection import preprocess, project
 from .rasterize_reference import ALPHA_MAX, ALPHA_MIN, T_EPS, RenderOutput
 
 TILE = 16  # the kernels' tile edge (one block of TILE*TILE threads per tile)
@@ -292,49 +289,11 @@ def composite_bwd_plain(
     return grads
 
 
-# C interfaces of csrc/composite_fwd.cu and csrc/composite_bwd.cu
-# fwd: pair_gaussian, tile_start, tile_end, tile_order, attrs; height, width,
-#      n_tiles_x, n_tiles; out, out_nc, stream
-FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-# bwd: pair_gaussian, tile_start, tile_end, tile_order, attrs, t_final, nc,
-#      grad_planes; height, width, n_tiles_x, n_tiles; grads, stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-# the entry points, all of one interface each: (bf16 rows,) -> fwd entry,
-# (bf16 rows, pairs rounded) -> bwd entry
+# the entries (cuda_build.ENTRIES) of each mode, all of one interface each:
+# (bf16 rows,) -> fwd entry, (bf16 rows, pairs rounded) -> bwd entry
 FWD_ENTRIES = {False: "composite_fwd", True: "composite_fwd_bf16"}
 BWD_ENTRIES = {(False, False): "composite_bwd", (False, True): "composite_bwd_round_pairs",
                (True, True): "composite_bwd_bf16"}
-
-
-def _bind(name: str, entries, argtypes) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
-    for entry in entries:
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
-
-
-@functools.cache
-def _fwd_lib() -> ctypes.CDLL:
-    return _bind("composite_fwd", FWD_ENTRIES.values(), FWD_ARGTYPES)
-
-
-@functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    return _bind("composite_bwd", BWD_ENTRIES.values(), BWD_ARGTYPES)
-
-
-def _check_kernel_inputs(expect: dict, dev: torch.device) -> None:
-    """Every tensor on `dev` (a CUDA device), of its dtype and shape, and
-    contiguous; raises ValueError otherwise."""
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be on {dev} (a CUDA device), got {t.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def _gaussian_inputs(mean2d, conic, opacity, color, depth, pair_gaussian,
@@ -360,7 +319,7 @@ def _check_kernel_layout(tile_order, attrs, n, n_tiles, dev) -> bool:
     attribute table, float32 (N, ROW) or bfloat16 (N, BF16_ROW). Returns
     whether the table is the bfloat16 one."""
     bf16 = attrs.dtype == torch.bfloat16
-    _check_kernel_inputs({
+    cuda_build.check_inputs({
         "tile_order": (tile_order, torch.int32, (n_tiles,)),
         "attrs": (attrs, *((torch.bfloat16, (n, BF16_ROW)) if bf16 else
                            (torch.float32, (n, ROW)))),
@@ -390,38 +349,23 @@ def composite_fwd_cuda(
     the kernel's own two inputs beside: `tile_order` (`Binning.tile_order`)
     and `attrs`, `pack_attributes` of the five attribute tensors or
     `pack_attributes_bf16` (then the result is the plain version's on
-    `round_attributes` of them). Counts its launches in
-    `composite_fwd_cuda.launches` (float32 table) and `.launches_bf16`."""
+    `round_attributes` of them). Counted in `cuda_build.launches` under its
+    entry, `composite_fwd` (float32 table) or `composite_fwd_bf16`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
     gaussians = (mean2d, conic, opacity, color, depth)
-    _check_kernel_inputs(_gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end,
-                                          n_tiles), dev)
+    cuda_build.check_inputs(_gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end,
+                                             n_tiles), dev)
     bf16 = _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
 
     planes = torch.empty((N_PLANES, height, width), dtype=torch.float32, device=dev)
     nc = torch.empty((height, width), dtype=torch.int32, device=dev)
-    entry = FWD_ENTRIES[bf16]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_fwd_lib(), entry)(
-            pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
-            tile_order.data_ptr(), attrs.data_ptr(),
-            height, width, n_tx, n_tiles,
-            planes.data_ptr(), nc.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    if bf16:
-        composite_fwd_cuda.launches_bf16 += 1
-    else:
-        composite_fwd_cuda.launches += 1
+    cuda_build.launch(FWD_ENTRIES[bf16], dev,
+                      pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+                      tile_order.data_ptr(), attrs.data_ptr(), height, width, n_tx, n_tiles,
+                      planes.data_ptr(), nc.data_ptr())
     return planes, nc
-
-
-composite_fwd_cuda.launches = 0
-composite_fwd_cuda.launches_bf16 = 0
 
 
 def _cotangent_planes(grad_planes: torch.Tensor | None, height: int, width: int,
@@ -462,9 +406,9 @@ def composite_bwd_cuda(
     `grad_planes` may also be None (zeros) or strided; `tile_order` and
     `attrs` as for `composite_fwd_cuda`. A bfloat16 table needs
     `round_pairs` (its pairs are rounded, as the JAX kernel's bf16 per-pair
-    table is). Counts its launches in `composite_bwd_cuda.launches` (float32
-    table), `.launches_round_pairs` (float32 table, pairs rounded) and
-    `.launches_bf16`."""
+    table is). Counted in `cuda_build.launches` under its entry,
+    `composite_bwd` (float32 table), `composite_bwd_round_pairs` (float32
+    table, pairs rounded) or `composite_bwd_bf16`."""
     dev = mean2d.device
     n_ty, n_tx = _tile_grid(height, width)
     n_tiles = n_ty * n_tx
@@ -472,37 +416,22 @@ def composite_bwd_cuda(
     expect = _gaussian_inputs(*gaussians, pair_gaussian, tile_start, tile_end, n_tiles)
     expect["t_final"] = (t_final, torch.float32, (height, width))
     expect["nc"] = (nc, torch.int32, (height, width))
-    _check_kernel_inputs(expect, dev)
+    cuda_build.check_inputs(expect, dev)
     cot = _cotangent_planes(grad_planes, height, width, dev)
-    _check_kernel_inputs({"grad_planes": (cot, torch.float32, (N_PLANES, height, width))}, dev)
+    cuda_build.check_inputs({"grad_planes": (cot, torch.float32, (N_PLANES, height, width))},
+                            dev)
     bf16 = _check_kernel_layout(tile_order, attrs, mean2d.shape[0], n_tiles, dev)
     if bf16 and not round_pairs:
         raise ValueError("a bfloat16 attribute table rounds its pairs' gradients: "
                          "pass round_pairs=True")
 
     buf, grads = gradient_buffer(mean2d.shape[0], dev)
-    entry = BWD_ENTRIES[bf16, bool(round_pairs)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_bwd_lib(), entry)(
-            pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
-            tile_order.data_ptr(), attrs.data_ptr(), t_final.data_ptr(), nc.data_ptr(),
-            cot.data_ptr(), height, width, n_tx, n_tiles, buf.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    if bf16:
-        composite_bwd_cuda.launches_bf16 += 1
-    elif round_pairs:
-        composite_bwd_cuda.launches_round_pairs += 1
-    else:
-        composite_bwd_cuda.launches += 1
+    cuda_build.launch(BWD_ENTRIES[bf16, bool(round_pairs)], dev,
+                      pair_gaussian.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+                      tile_order.data_ptr(), attrs.data_ptr(), t_final.data_ptr(),
+                      nc.data_ptr(), cot.data_ptr(), height, width, n_tx, n_tiles,
+                      buf.data_ptr())
     return grads
-
-
-composite_bwd_cuda.launches = 0
-composite_bwd_cuda.launches_round_pairs = 0
-composite_bwd_cuda.launches_bf16 = 0
 
 
 class _Composite(torch.autograd.Function):
@@ -581,259 +510,6 @@ def composite(
         depth.contiguous(), binning.pair_gaussian, binning.tile_start,
         binning.tile_end, binning.tile_order, height, width, attr_precision, grad_precision,
     )
-
-
-# C interfaces of csrc/preprocess.cu
-# fwd: means3d, scales, rotations, opacities, shs; shs's three strides;
-#      mean2d_offset, alive; the camera's world_view, full_proj, cam_center,
-#      tanfovx, tanfovy; n, sh_degree; scale_modifier; antialiasing, tight,
-#      width, height; mean2d, depth, conic, opacity, color, radius, valid,
-#      radius_x, radius_y; stream
-PROJECT_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
-                        + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
-                        + [ctypes.c_void_p] * 10)
-# bwd: means3d, scales, rotations, opacities, shs; shs's strides; the
-#      camera's five tensors; n, sh_degree; scale_modifier; antialiasing,
-#      width, height; the five cotangents, each (pointer, row stride); the
-#      gradients of means3d, scales, rotations, opacities, shs; the last
-#      one's strides; its coefficients; stream
-PROJECT_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
-                        + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
-                        + [ctypes.c_void_p, ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 5
-                        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
-PROJECT_MAX_SH_DEGREE = 4  # the kernels' SH basis
-CAMERA_FIELDS = (("world_view", (4, 4)), ("full_proj", (4, 4)), ("cam_center", (3,)),
-                 ("tanfovx", ()), ("tanfovy", ()))  # the camera's tensors the kernels read
-RADIUS_MODES = ("cuda", "tight")
-
-
-@functools.cache
-def _project_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("preprocess")
-    for entry, argtypes in (("project_fwd", PROJECT_FWD_ARGTYPES),
-                            ("project_bwd", PROJECT_BWD_ARGTYPES)):
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
-
-
-def _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam: Camera,
-                             sh_degree: int, scale_modifier) -> torch.device:
-    """The projection kernels' own inputs: float32 on one CUDA device,
-    contiguous but for `shs` (N, 3, K >= (sh_degree + 1)^2, any strides),
-    SH degree <= 4 and a Python number as `scale_modifier`; raises
-    ValueError otherwise. Returns the device."""
-    dev = means3d.device
-    n = means3d.shape[0]
-    if n * 4 >= 2**31:
-        raise ValueError("the projection kernels index with 32-bit integers")
-    if not 0 <= sh_degree <= PROJECT_MAX_SH_DEGREE:
-        raise ValueError(f"the projection kernels take SH degrees 0 to {PROJECT_MAX_SH_DEGREE}, "
-                         f"got {sh_degree}")
-    if isinstance(scale_modifier, torch.Tensor):
-        raise ValueError("the projection kernels take scale_modifier as a Python number")
-    _check_kernel_inputs({
-        "means3d": (means3d, torch.float32, (n, 3)),
-        "scales": (scales, torch.float32, (n, 3)),
-        "rotations": (rotations, torch.float32, (n, 4)),
-        "opacities": (opacities.reshape(-1), torch.float32, (n,)),
-    }, dev)
-    if not opacities.is_contiguous():
-        raise ValueError("opacities must be contiguous")
-    if shs.device != dev or shs.dtype != torch.float32:
-        raise ValueError(f"shs must be float32 on {dev}, got {shs.dtype} on {shs.device}")
-    if shs.dim() != 3 or shs.shape[:2] != (n, 3) or shs.shape[2] < (sh_degree + 1) ** 2:
-        raise ValueError(f"shs must be ({n}, 3, K >= {(sh_degree + 1) ** 2}), "
-                         f"got {tuple(shs.shape)}")
-    return dev
-
-
-def _camera_tensors(cam: Camera, dev: torch.device) -> list[torch.Tensor]:
-    """The camera's tensors the kernels read (CAMERA_FIELDS), float32 on
-    `dev`, made contiguous (the viewer's matrices arrive transposed)."""
-    tensors = [getattr(cam, f).contiguous() for f, _ in CAMERA_FIELDS]
-    _check_kernel_inputs({f"camera {f}": (t, torch.float32, shape)
-                          for (f, shape), t in zip(CAMERA_FIELDS, tensors)}, dev)
-    return tensors
-
-
-def project_fwd_cuda(
-    means3d: torch.Tensor,
-    scales: torch.Tensor,
-    rotations: torch.Tensor,
-    opacities: torch.Tensor,
-    shs: torch.Tensor,
-    cam: Camera,
-    *,
-    sh_degree: int,
-    scale_modifier: float = 1.0,
-    antialiasing: bool = False,
-    radius_mode: str = "tight",
-    mean2d_offset: torch.Tensor | None = None,
-    alive: torch.Tensor | None = None,
-) -> ProjectedGaussians:
-    """Launch the projection kernel (csrc/preprocess.cu `project_fwd`) on
-    PyTorch's current stream: `preprocess` of these inputs with `shs` (read
-    at its own strides) through `cam` (its tensors read on the device),
-    every output bit-equal. Counts its launches in
-    `project_fwd_cuda.launches`."""
-    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
-                                   scale_modifier)
-    n = means3d.shape[0]
-    extra = {}
-    if mean2d_offset is not None:
-        extra["mean2d_offset"] = (mean2d_offset, torch.float32, (n, 2))
-    if alive is not None:
-        extra["alive"] = (alive, torch.bool, (n,))
-    _check_kernel_inputs(extra, dev)
-    if radius_mode not in RADIUS_MODES:
-        raise ValueError(f"unknown radius_mode {radius_mode!r}")
-    camera = _camera_tensors(cam, dev)
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = ProjectedGaussians(
-        mean2d=empty(n, 2), depth=empty(n), conic=empty(n, 3), opacity=empty(n),
-        color=empty(n, 3), radius=empty(n), valid=empty(n, dtype=torch.bool),
-        radius_x=empty(n), radius_y=empty(n))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _project_lib().project_fwd(
-            means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
-            shs.data_ptr(), *shs.stride(),
-            None if mean2d_offset is None else mean2d_offset.data_ptr(),
-            None if alive is None else alive.data_ptr(),
-            *(t.data_ptr() for t in camera), n, sh_degree, float(scale_modifier), int(antialiasing), int(radius_mode == "tight"),
-            cam.width, cam.height, *(t.data_ptr() for t in out), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"project_fwd kernel launch failed: CUDA error {err}")
-    project_fwd_cuda.launches += 1
-    return out
-
-
-project_fwd_cuda.launches = 0
-
-
-def _cotangent_rows(g: torch.Tensor | None, n: int, cols: int, name: str,
-                    dev: torch.device) -> tuple[torch.Tensor | None, int]:
-    """(a cotangent whose columns are adjacent, its row stride): None stays
-    None (the kernel reads zeros); a view of a wider table (the composite's
-    gradient rows) is read in place; other layouts are copied."""
-    if g is None:
-        return None, 0
-    shape = (n, cols) if cols > 1 else (n,)
-    if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape:
-        raise ValueError(f"the {name} cotangent must be float32 {shape} on {dev}, "
-                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
-    if cols > 1 and g.stride(1) != 1:
-        g = g.contiguous()
-    return g, g.stride(0)
-
-
-def project_bwd_cuda(
-    means3d: torch.Tensor,
-    scales: torch.Tensor,
-    rotations: torch.Tensor,
-    opacities: torch.Tensor,
-    shs: torch.Tensor,
-    cam: Camera,
-    grads: tuple,
-    *,
-    sh_degree: int,
-    scale_modifier: float = 1.0,
-    antialiasing: bool = False,
-) -> tuple[torch.Tensor, ...]:
-    """Launch the projection's VJP kernel (csrc/preprocess.cu `project_bwd`)
-    on PyTorch's current stream. Same contract as `preprocess_bwd_plain`; a
-    cotangent may be None (zeros) or a strided view. The shs gradient has
-    the layout of `shs`. Counts its launches in
-    `project_bwd_cuda.launches`."""
-    dev = _check_projection_inputs(means3d, scales, rotations, opacities, shs, cam, sh_degree,
-                                   scale_modifier)
-    n = means3d.shape[0]
-    cots = [_cotangent_rows(g, n, cols, name, dev) for g, cols, name in
-            zip(grads, (2, 1, 3, 1, 3), ("mean2d", "depth", "conic", "opacity", "color"))]
-    camera = _camera_tensors(cam, dev)
-    out = (torch.empty_like(means3d), torch.empty_like(scales), torch.empty_like(rotations),
-           torch.empty_like(opacities), torch.empty_like(shs))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _project_lib().project_bwd(
-            means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
-            shs.data_ptr(), *shs.stride(), *(t.data_ptr() for t in camera), n, sh_degree, float(scale_modifier), int(antialiasing), cam.width, cam.height,
-            *(v for g, stride in cots for v in (None if g is None else g.data_ptr(), stride)),
-            *(t.data_ptr() for t in out), *out[4].stride(), shs.shape[2], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"project_bwd kernel launch failed: CUDA error {err}")
-    project_bwd_cuda.launches += 1
-    return out
-
-
-project_bwd_cuda.launches = 0
-
-
-class _Project(torch.autograd.Function):
-    """Projection with SH behind autograd (CUDA tensors): the forward kernel,
-    then the VJP kernel. The radii and `valid` are not differentiable; the
-    gradient of `mean2d_offset` is the mean2d cotangent."""
-
-    @staticmethod
-    def forward(ctx, means3d, scales, rotations, opacities, shs, mean2d_offset, alive, cam,
-                sh_degree, scale_modifier, antialiasing, radius_mode):
-        settings = dict(sh_degree=sh_degree, scale_modifier=scale_modifier,
-                        antialiasing=antialiasing)
-        proj = project_fwd_cuda(means3d, scales, rotations, opacities, shs, cam,
-                                radius_mode=radius_mode, mean2d_offset=mean2d_offset,
-                                alive=alive, **settings)
-        ctx.save_for_backward(means3d, scales, rotations, opacities, shs)
-        ctx.cam = cam
-        ctx.settings = settings
-        ctx.has_offset = mean2d_offset is not None
-        ctx.mark_non_differentiable(proj.radius, proj.valid, proj.radius_x, proj.radius_y)
-        ctx.set_materialize_grads(False)  # a missing cotangent reads as zeros in the kernel
-        return tuple(proj)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g_mean2d, g_depth, g_conic, g_opacity, g_color, *_non_differentiable):
-        grads = project_bwd_cuda(*ctx.saved_tensors, ctx.cam,
-                                 (g_mean2d, g_depth, g_conic, g_opacity, g_color), **ctx.settings)
-        g_offset = g_mean2d if ctx.has_offset else None
-        return (*grads, g_offset, *[None] * 6)
-
-
-def project(
-    means3d: torch.Tensor,
-    scales: torch.Tensor,
-    rotations: torch.Tensor,
-    opacities: torch.Tensor,
-    cam: Camera,
-    *,
-    shs: torch.Tensor | None,
-    colors: torch.Tensor | None = None,
-    cov3d_precomp: torch.Tensor | None = None,
-    sh_degree: int = 0,
-    scale_modifier: float = 1.0,
-    antialiasing: bool = False,
-    mean2d_offset: torch.Tensor | None = None,
-    alive: torch.Tensor | None = None,
-    radius_mode: str = "tight",
-) -> ProjectedGaussians:
-    """`preprocess` of CUDA float32 tensors through the projection kernels,
-    differentiable: the same outputs, bit-equal. They take `shs` of SH
-    degree <= 4 and a Python number as `scale_modifier`; any other call
-    (`colors`, `cov3d_precomp`, another dtype) raises ValueError."""
-    if shs is None or colors is not None or cov3d_precomp is not None:
-        raise ValueError("the projection kernels take `shs`, not `colors` or `cov3d_precomp` "
-                         "(those run through `preprocess` on CPU tensors)")
-    return ProjectedGaussians(*_Project.apply(
-        means3d.contiguous(), scales.contiguous(), rotations.contiguous(),
-        opacities.contiguous(), shs, mean2d_offset, alive, cam, sh_degree, scale_modifier,
-        antialiasing, radius_mode))
 
 
 def rasterize_cuda(

@@ -147,25 +147,6 @@ def photometric_vjp_plain(
 # ---- the loss kernels (csrc/loss.cu) -------------------------------------
 
 LOSS_WINDOW = (11, 1.5)  # the kernels' window: size, sigma
-# fwd: pred, gt; h, w; window (host); c1, c2, 1 - lambda, lambda; ssim_map
-#      (may be null), d_mu, d_xx, d_xy, partials, total, l1, stream
-LOSS_FWD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                     + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 8)
-# bwd: pred, gt, d_mu, d_xx, d_xy; h, w; window (host); g_total, g_l1 (each
-#      may be null); the three coefficients; grad, stream
-LOSS_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                     + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
-
-
-@functools.cache
-def _loss_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("loss")
-    for entry, argtypes in (("loss_fwd", LOSS_FWD_ARGTYPES), ("loss_bwd", LOSS_BWD_ARGTYPES),
-                            ("loss_blocks", [ctypes.c_int] * 2)):
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
 
 
 @functools.cache
@@ -200,29 +181,23 @@ def photometric_fwd_cuda(
     """Launch L1 and its reduction (csrc/loss.cu `loss_fwd`) on PyTorch's
     current stream over contiguous `pred` and `gt`: (total, l1, the (3, H,
     W, 3) derivative maps dm/dmu1, dm/dE[x^2], dm/dE[xy], the SSIM map if
-    `with_map`). Counts its launches in
-    `photometric_loss_cuda.launches_fwd`."""
+    `with_map`). Counted in `cuda_build.launches["loss_fwd"]`."""
     _check_loss_inputs(pred, gt)
     if not (pred.is_contiguous() and gt.is_contiguous()):
         raise ValueError("the loss kernels take contiguous images")
     h, w, _ = pred.shape
     dev = pred.device
-    lib = _loss_lib()
     maps = torch.empty((3, h, w, 3), dtype=torch.float32, device=dev)
     smap = torch.empty_like(pred) if with_map else None
-    partials = torch.empty(2 * lib.loss_blocks(h, w), dtype=torch.float64, device=dev)
+    blocks = cuda_build.entry("loss_blocks")(h, w)
+    partials = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
     l1 = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.loss_fwd(
-            pred.data_ptr(), gt.data_ptr(), h, w, _window_array(), C1, C2,
-            1.0 - lambda_dssim, lambda_dssim, None if smap is None else smap.data_ptr(),
-            *(m.data_ptr() for m in maps),
-            partials.data_ptr(), total.data_ptr(), l1.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"loss_fwd kernel launch failed: CUDA error {err}")
-    photometric_loss_cuda.launches_fwd += 1
+    cuda_build.launch("loss_fwd", dev,
+                      pred.data_ptr(), gt.data_ptr(), h, w, _window_array(), C1, C2,
+                      1.0 - lambda_dssim, lambda_dssim, None if smap is None else smap.data_ptr(),
+                      *(m.data_ptr() for m in maps),
+                      partials.data_ptr(), total.data_ptr(), l1.data_ptr())
     return total, l1, maps, smap
 
 
@@ -236,15 +211,13 @@ def photometric_bwd_cuda(
 ) -> torch.Tensor:
     """Launch L2 (csrc/loss.cu `loss_bwd`) on PyTorch's current stream: the
     gradient of `pred` from L1's derivative `maps`, as `photometric_vjp_plain`
-    gives it; a cotangent may be None (no gradient). Counts its launches in
-    `photometric_loss_cuda.launches_bwd`."""
+    gives it; a cotangent may be None (no gradient). Counted in
+    `cuda_build.launches["loss_bwd"]`."""
     _check_loss_inputs(pred, gt)
     h, w, _ = pred.shape
-    if not (pred.is_contiguous() and gt.is_contiguous() and maps.is_contiguous()):
-        raise ValueError("the loss kernels take contiguous images and maps")
-    if maps.shape != (3, h, w, 3) or maps.dtype != torch.float32 or maps.device != pred.device:
-        raise ValueError(f"the derivative maps must be float32 (3, {h}, {w}, 3) on "
-                         f"{pred.device}, got {maps.dtype} {tuple(maps.shape)} on {maps.device}")
+    if not (pred.is_contiguous() and gt.is_contiguous()):
+        raise ValueError("the loss kernels take contiguous images")
+    cuda_build.check_inputs({"maps": (maps, torch.float32, (3, h, w, 3))}, pred.device)
     cots = []
     for name, g in (("g_total", g_total), ("g_l1", g_l1)):
         if g is not None:
@@ -253,15 +226,10 @@ def photometric_bwd_cuda(
             g = g.to(torch.float32).contiguous()
         cots.append(g)
     grad = torch.empty_like(pred)
-    with torch.cuda.device(pred.device):
-        stream = torch.cuda.current_stream(pred.device).cuda_stream
-        err = _loss_lib().loss_bwd(
-            pred.data_ptr(), gt.data_ptr(), *(m.data_ptr() for m in maps), h, w,
-            _window_array(), *(None if g is None else g.data_ptr() for g in cots),
-            *_loss_coefficients(lambda_dssim, pred.numel()), grad.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"loss_bwd kernel launch failed: CUDA error {err}")
-    photometric_loss_cuda.launches_bwd += 1
+    cuda_build.launch("loss_bwd", pred.device,
+                      pred.data_ptr(), gt.data_ptr(), *(m.data_ptr() for m in maps), h, w,
+                      _window_array(), *(None if g is None else g.data_ptr() for g in cots),
+                      *_loss_coefficients(lambda_dssim, pred.numel()), grad.data_ptr())
     return grad
 
 
@@ -293,9 +261,6 @@ def photometric_loss_cuda(pred: torch.Tensor, gt: torch.Tensor, lambda_dssim: fl
     Non-contiguous images are made contiguous; anything else the kernels do
     not take (CPU tensors, another dtype or channel count, a `gt` that
     requires grad) raises ValueError. Its launches are counted in
-    `.launches_fwd` (L1 with its reduction) and `.launches_bwd` (L2)."""
+    `cuda_build.launches` under `loss_fwd` (L1 with its reduction) and
+    `loss_bwd` (L2)."""
     return _PhotometricLoss.apply(pred.contiguous(), gt.contiguous(), lambda_dssim)
-
-
-photometric_loss_cuda.launches_fwd = 0
-photometric_loss_cuda.launches_bwd = 0

@@ -10,9 +10,12 @@ max|g| in float32 (autograd sums the same terms in another order), on
 whole tiles, ragged ones and an image smaller than the window, at lambda
 0, 0.2 and 1, with and without a cotangent on l1. Pixels where pred == gt
 exactly take sgn(0) = 0, as torch's abs backward does."""
+import collections
+
 import pytest
 import torch
 
+from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 from gaussian_mesh_splatting_tpu_torch.ops import ssim as S
 from gaussian_mesh_splatting_tpu_torch.train.loss import l1_loss, photometric_loss
 from gaussian_mesh_splatting_tpu_torch.utils.profiling import Recording, tracing
@@ -97,14 +100,14 @@ def test_ssim_map_is_ssims_map(shape):
 
 def test_cpu_tensors_take_the_chain():
     pred, gt = _images((37, 53), torch.float32, seed=11)
-    launches = (S.photometric_loss_cuda.launches_fwd, S.photometric_loss_cuda.launches_bwd)
+    launches = (cuda_build.launches["loss_fwd"], cuda_build.launches["loss_bwd"])
     rec = Recording("cpu")
     leaf = pred.clone().requires_grad_()
     with tracing(rec):
         total, l1 = photometric_loss(leaf, gt, 0.2)
     total.backward()
     assert rec.counts == [("loss_kernel", 0, None)]
-    assert (S.photometric_loss_cuda.launches_fwd, S.photometric_loss_cuda.launches_bwd) == launches
+    assert (cuda_build.launches["loss_fwd"], cuda_build.launches["loss_bwd"]) == launches
     want_l1 = l1_loss(pred, gt)
     assert torch.equal(l1, want_l1)
     assert torch.equal(total, 0.8 * want_l1 + 0.2 * (1.0 - S.ssim(pred, gt)))
@@ -129,19 +132,18 @@ def _plain_launchers(monkeypatch):
     def fwd(pred, gt, lam, *, with_map=False):
         with torch.no_grad():
             total, l1 = photometric_loss(pred, gt, lam)
-        S.photometric_loss_cuda.launches_fwd += 1
+        cuda_build.launches["loss_fwd"] += 1
         return total, l1, torch.zeros(3, *pred.shape), None
 
     def bwd(pred, gt, maps, lam, g_total, g_l1=None):
         calls["bwd_maps"].append(maps)
-        S.photometric_loss_cuda.launches_bwd += 1
+        cuda_build.launches["loss_bwd"] += 1
         return S.photometric_vjp_plain(pred, gt, lam, g_total, g_l1)
 
     monkeypatch.setattr(S, "photometric_fwd_cuda", fwd)
     monkeypatch.setattr(S, "photometric_bwd_cuda", bwd)
     monkeypatch.setattr(S, "_check_loss_inputs", lambda pred, gt: None)
-    monkeypatch.setattr(S.photometric_loss_cuda, "launches_fwd", 0)
-    monkeypatch.setattr(S.photometric_loss_cuda, "launches_bwd", 0)
+    monkeypatch.setattr(cuda_build, "launches", collections.Counter())
     return calls
 
 
@@ -162,6 +164,6 @@ def test_function_wiring(monkeypatch, uses):
         want = S.photometric_vjp_plain(pred, gt, 0.2, g_total, g_l1)
         assert torch.equal(leaf.grad.transpose(0, 1), want)
         assert calls["bwd_maps"][0].shape == (3, 37, 53, 3)
-    assert S.photometric_loss_cuda.launches_fwd == 1
-    assert S.photometric_loss_cuda.launches_bwd == (1 if outs else 0)
+    assert cuda_build.launches["loss_fwd"] == 1
+    assert cuda_build.launches["loss_bwd"] == (1 if outs else 0)
 

@@ -49,8 +49,8 @@ PYTREE_BATCH = ("JAX pytree batching of cameras for shard_map: a port rank takes
 GS_TYPE_GROUPS = "the port's Adam groups come from the param keys, not from the gs_type"
 GUI_GLOBALS = ("module-level socket state: the port's apps/network_gui.NetworkGUI object owns "
                "its sockets and has these as methods")
-TPU_PROFILES = ("TPU xprof and phase profiles: the port's on-card timings are chip_smoke.py "
-                "phase 6, tools_torch_step_timing.py and tools_torch_composite_probe.py")
+TPU_PROFILES = ("TPU xprof and phase profiles: the port's on-card timings are benchmark/run.py, "
+                "tools_torch_span_split.py and chip_smoke.py")
 PROFILE_SCRIPTS = ("profile_bin.py", "profile_bin3.py", "profile_bwd.py", "profile_c256.py",
                    "profile_full.py", "profile_ops.py", "profile_r2.py", "profile_r3.py",
                    "profile_r4.py", "profile_r4b.py", "profile_r5.py", "profile_sort.py",

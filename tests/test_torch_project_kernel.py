@@ -19,6 +19,8 @@ import torch
 
 from gaussian_mesh_splatting_tpu_torch.core.camera import make_camera
 from gaussian_mesh_splatting_tpu_torch.core.sh import C0
+from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
+from gaussian_mesh_splatting_tpu_torch.ops import projection as P
 from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
 from gaussian_mesh_splatting_tpu_torch.ops.projection import (
     FRUSTUM_CLAMP, preprocess, preprocess_bwd_plain)
@@ -225,11 +227,11 @@ def test_dispatch_sends_other_calls_to_the_chain():
     for refused in (dict(shs=None, colors=colors), dict(shs=sh, colors=colors),
                     dict(shs=sh, cov3d_precomp=cov6), dict(shs=None)):
         with pytest.raises(ValueError, match="colors"):
-            rc.project(m, s, q, o, cam, sh_degree=3, **refused)
+            P.project(m, s, q, o, cam, sh_degree=3, **refused)
     with pytest.raises(ValueError, match="SH degrees 0 to 4"):
-        rc.project(m, s, q, o, cam, shs=sh, sh_degree=5)
+        P.project(m, s, q, o, cam, shs=sh, sh_degree=5)
     with pytest.raises(ValueError, match="scale_modifier"):
-        rc.project(m, s, q, o, cam, shs=sh, sh_degree=3, scale_modifier=torch.tensor(1.0))
+        P.project(m, s, q, o, cam, shs=sh, sh_degree=3, scale_modifier=torch.tensor(1.0))
 
 
 def test_cpu_render_counts_the_chain():
@@ -251,21 +253,21 @@ def test_kernels_read_the_cameras_own_tensors():
     viewer = dataclasses.replace(cam, world_view=cam.world_view.t().contiguous().t())
     assert not viewer.world_view.is_contiguous()
     with pytest.raises(ValueError, match="camera world_view must be on cuda"):
-        rc._camera_tensors(viewer, torch.device("cuda"))
-    got = [getattr(viewer, f).contiguous() for f, _ in rc.CAMERA_FIELDS]
+        P._camera_tensors(viewer, torch.device("cuda"))
+    got = [getattr(viewer, f).contiguous() for f, _ in P.CAMERA_FIELDS]
     assert all(t.is_contiguous() for t in got)
-    assert [tuple(t.shape) for t in got] == [shape for _, shape in rc.CAMERA_FIELDS]
+    assert [tuple(t.shape) for t in got] == [shape for _, shape in P.CAMERA_FIELDS]
     assert torch.equal(got[0], cam.world_view)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     cam, (m, s, q, o, sh), _ = _scene(torch.float32, ties=False)
     with pytest.raises(ValueError, match="CUDA"):
-        rc.project_fwd_cuda(m, s, q, o, sh, cam, sh_degree=3)
+        P.project_fwd_cuda(m, s, q, o, sh, cam, sh_degree=3)
     grads = (torch.zeros(m.shape[0], 2), None, None, None, None)
     with pytest.raises(ValueError, match="CUDA"):
-        rc.project_bwd_cuda(m, s, q, o, sh, cam, grads, sh_degree=3)
-    assert rc.project_fwd_cuda.launches == 0 and rc.project_bwd_cuda.launches == 0
+        P.project_bwd_cuda(m, s, q, o, sh, cam, grads, sh_degree=3)
+    assert cuda_build.launches["project_fwd"] == 0 and cuda_build.launches["project_bwd"] == 0
 
 
 def test_cotangent_rows_read_the_composites_table_in_place():
@@ -274,13 +276,13 @@ def test_cotangent_rows_read_the_composites_table_in_place():
     n = 7
     grads = torch.randn(n, 12)
     dev = torch.device("cpu")
-    view, stride = rc._cotangent_rows(grads[:, 2:5], n, 3, "conic", dev)
+    view, stride = P._cotangent_rows(grads[:, 2:5], n, 3, "conic", dev)
     assert view.data_ptr() == grads[:, 2:5].data_ptr() and stride == 12
-    col, stride = rc._cotangent_rows(grads[:, 9], n, 1, "depth", dev)
+    col, stride = P._cotangent_rows(grads[:, 9], n, 1, "depth", dev)
     assert col.data_ptr() == grads[:, 9].data_ptr() and stride == 12
     odd = torch.randn(2, n).t()
-    copied, stride = rc._cotangent_rows(odd, n, 2, "mean2d", dev)
+    copied, stride = P._cotangent_rows(odd, n, 2, "mean2d", dev)
     assert stride == 2 and torch.equal(copied, odd)
-    assert rc._cotangent_rows(None, n, 3, "color", dev) == (None, 0)
+    assert P._cotangent_rows(None, n, 3, "color", dev) == (None, 0)
     with pytest.raises(ValueError, match="conic"):
-        rc._cotangent_rows(torch.zeros(n, 2), n, 3, "conic", dev)
+        P._cotangent_rows(torch.zeros(n, 2), n, 3, "conic", dev)

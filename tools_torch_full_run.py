@@ -322,11 +322,8 @@ def main(argv: list[str] | None = None) -> int:
     from gaussian_mesh_splatting_tpu_torch.apps import metrics as metrics_app
     from gaussian_mesh_splatting_tpu_torch.apps import render as render_app
     from gaussian_mesh_splatting_tpu_torch.apps import train as train_app
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.train.config import optimization_config
-
-    def launches() -> list[int]:
-        return [rc.composite_fwd_cuda.launches, rc.composite_bwd_cuda.launches]
 
     if not torch.cuda.is_available():
         print("tools_torch_full_run: no CUDA device", file=sys.stderr)
@@ -344,17 +341,19 @@ def main(argv: list[str] | None = None) -> int:
     print(f"dataset: {N_TRAIN} + {N_TEST} views, {cs.SIZE}x{cs.SIZE}, in {data_s:.1f} s",
           flush=True)
 
-    t0, before = time.perf_counter(), launches()
+    # [composite_fwd, composite_bwd] launches: apps.train, then apps.render
+    kernel_launches = {}
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
     res = train_app.main(train_argv(args.gs_type, data_dir, model_dir, iterations, tests))
     torch.cuda.synchronize()
-    train_s, train_launches = time.perf_counter() - t0, launches()
+    train_s = time.perf_counter() - t0
+    kernel_launches["train"] = [cuda_build.launches[e] for e in cs.COMPOSITES]
+    cuda_build.launches.clear()
     render_app.main(["-m", model_dir, "--skip_train"])
     metrics_app.main(["-m", model_dir])
     eval_s = time.perf_counter() - t0 - train_s
-    after = launches()
-    # [composite_fwd, composite_bwd] launches: apps.train, then apps.render
-    kernel_launches = {"train": [a - b for a, b in zip(train_launches, before)],
-                       "render": [a - b for a, b in zip(after, train_launches)]}
+    kernel_launches["render"] = [cuda_build.launches[e] for e in cs.COMPOSITES]
     with open(os.path.join(model_dir, f"results_{args.gs_type}.json")) as f:
         final = json.load(f)[f"ours_{iterations}"][args.gs_type]
     series = read_metrics_jsonl(model_dir)

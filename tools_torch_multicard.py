@@ -362,6 +362,7 @@ def case_render(ctx):
     renders' times (median of 5)."""
     import torch
 
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.ops.rasterize_cuda import rasterize_cuda
     from gaussian_mesh_splatting_tpu_torch.parallel import (
         create_mesh, render_gaussian_sharded, render_row_sharded)
@@ -382,12 +383,13 @@ def case_render(ctx):
             def sharded(fn=fn):
                 return fn(teacher, cam, bg, mesh, sh_degree=SH_DEGREE)
 
-            cs.launch_counts(reset=True)
+            cuda_build.launches.clear()
             img = sharded()
             sync(ctx.dev)
             out[shard] = {"bit_equal": bool(torch.equal(img, ref.image)),
                           "max_abs_err": float((img - ref.image).abs().max()),
-                          "launches": cs.launch_counts(), "ms": device_ms(sharded, ctx.dev)}
+                          "launches": tuple(cuda_build.launches[e] for e in cs.COMPOSITES),
+                          "ms": device_ms(sharded, ctx.dev)}
     return out
 
 
@@ -419,6 +421,7 @@ def case_steps(ctx, mode: str):
     import torch
     import torch.distributed as dist
 
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
     from gaussian_mesh_splatting_tpu_torch.parallel import multihost
     from gaussian_mesh_splatting_tpu_torch.train import make_train_state, optimization_config
 
@@ -426,7 +429,7 @@ def case_steps(ctx, mode: str):
     state = make_train_state(init, optimization_config("gs_mesh"), scene.cameras_extent)
     step, pick = make_mode_step(ctx, mode)
     cams, bg = scene.train_cameras, torch.ones(3, device=ctx.dev)
-    cs.launch_counts(reset=True)
+    cuda_build.launches.clear()
     _, metrics = step(state, cams[pick][0], gts[pick], bg)
     out = {"first_loss": float(metrics["loss"]),
            "stats": {k: getattr(state.stats, k).cpu().clone()
@@ -438,7 +441,7 @@ def case_steps(ctx, mode: str):
         (_, metrics), ms = timed(lambda: step(state, cams[c][0], gts[c], bg), ctx.dev)
         out["step_ms"].append(ms)
         out["losses"].append(float(metrics["loss"]))
-    out["launches"] = cs.launch_counts()
+    out["launches"] = tuple(cuda_build.launches[e] for e in cs.COMPOSITES)
     sums = [None] * ctx.world
     dist.all_gather_object(sums, multihost.state_digest(state))
     out["checksums"] = sums

@@ -130,11 +130,11 @@ def pair_count(params: dict, cam, n: int) -> int:
 
 def launches() -> dict:
     """The composite kernels' launch counts in this process (0 on the CPU,
-    where the wrappers take the plain versions)."""
-    from gaussian_mesh_splatting_tpu_torch.ops import rasterize_cuda as rc
+    where the wrappers take the plain versions). Read, not cleared: a
+    caller may count a span that holds several checks."""
+    from gaussian_mesh_splatting_tpu_torch.ops import cuda_build
 
-    return {"composite_fwd": rc.composite_fwd_cuda.launches,
-            "composite_bwd": rc.composite_bwd_cuda.launches}
+    return {e: cuda_build.launches[e] for e in ("composite_fwd", "composite_bwd")}
 
 
 def _since(before: dict) -> dict:
